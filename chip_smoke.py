@@ -1,0 +1,613 @@
+#!/usr/bin/env python3
+"""Drive the PyTorch/CUDA port (``src/repro_torch``) on one NVIDIA GPU.
+
+    python3 chip_smoke.py [--seed N] [--out DIR]
+
+Details (nvcc log, serving report, mirror cost, profile) go to DIR, by
+default ``build/chip_smoke/``.
+
+Phases; any failure exits non-zero before a result line is printed:
+
+1. Device: the card's name and power limit (``nvidia-smi``).  Exits 1
+   when ``torch.cuda.is_available()`` is false.
+2. Build and kernels: builds the CUDA kernels from ``src/repro_torch/
+   kernels/csrc`` with nvcc, then holds each of the four kernels against
+   its plain PyTorch version on the card at the serving shapes of the
+   paper's 2x1024 DeltaLSTM (1e-6 elementwise, 1e-5 for the SpMV, whose
+   fp32 sum order may differ, exact fired counts) and times the kernel,
+   the plain version and, where one exists, a PyTorch library call that
+   computes the same function.
+3. Serving at full width: ``DELTA_LSTM_2L_1024H`` (D=123, H=1024, 2
+   layers, theta=0.3) from seeded weights, CBTD-pruned at gamma=0.9375,
+   M=64 (kept weights scaled by 1/(1-gamma): see ``servable_params``),
+   served by ``serve_requests`` (capacity 16, 32 requests of 100-300
+   frames, chunk_frames=16) on three routes: the dense mirror ("auto"),
+   the CBCSC scatter kernel, and scatter + int8.  Each run checks pool vs
+   the batch-1 engine on the card (1e-5), the card vs the same pool on the
+   CPU (1e-4 on 4 requests cut to 64 frames: fp32 sums run in another
+   order on the two, compounded through two recurrent layers), and that
+   every kernel of the route was launched, counting the pool's launches
+   and the batch-1 engine's apart.  Then the cost of the float64
+   dense-mirror GEMM against a plain fp32 ``torch.matmul`` (``mirror_cost``)
+   and a profile of one scatter-route wave.
+4. Prints ``{"kernels": [...]}`` and then, as the last line,
+   ``{"ok": true, "device": {...}}``.
+
+It imports nothing of JAX and nothing of the JAX package ``repro``.
+"""
+from __future__ import annotations
+
+import argparse
+import json
+import subprocess
+import sys
+import time
+import warnings
+from pathlib import Path
+
+import numpy as np
+
+ROOT = Path(__file__).resolve().parent
+HBM_BYTES_PER_S = 3.35e12       # H100 SXM HBM3, NVIDIA data sheet
+TOL_ELEMENTWISE = 1e-6
+TOL_SPMV = 1e-5
+TOL_POOL_VS_BATCH1 = 1e-5
+TOL_CARD_VS_CPU = 1e-4
+CAPACITY, N_REQUESTS, CHUNK_FRAMES = 16, 32, 16
+MIN_FRAMES, MAX_FRAMES = 100, 300
+CPU_CHECK_REQUESTS, CPU_CHECK_FRAMES = 4, 64
+GAMMA, M = 0.9375, 64
+
+
+class SmokeFailure(RuntimeError):
+    pass
+
+
+def check(ok: bool, what: str) -> None:
+    if not ok:
+        raise SmokeFailure(what)
+
+
+def nvidia_smi() -> str:
+    proc = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        timeout=60)
+    check(proc.returncode == 0, f"nvidia-smi failed: {proc.stderr.strip()}")
+    return proc.stdout.strip().splitlines()[0]
+
+
+def time_ms(torch, fn, iters: int = 100, warmup: int = 5) -> float:
+    """CUDA-event time per call over ``iters`` back-to-back calls."""
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(iters):
+        fn()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / iters
+
+
+def device_ms(torch, fn, kernel: str, iters: int = 50):
+    """Mean device time of the CUDA kernels whose name contains
+    ``kernel`` per call of ``fn``, from torch.profiler; None if the
+    profiler recorded no such kernel."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    total_us = 0.0
+    for evt in prof.key_averages():
+        if kernel in evt.key:
+            total_us += getattr(evt, "device_time_total",
+                                getattr(evt, "cuda_time_total", 0.0))
+    return total_us / iters / 1e3 if total_us else None
+
+
+def bound_ms(n_bytes: float) -> float:
+    return n_bytes / HBM_BYTES_PER_S * 1e3
+
+
+def max_err(a, b) -> float:
+    return float((a.double() - b.double()).abs().max())
+
+
+def servable_params(lstm_am, am_cfg, seed: int):
+    """Seeded weights from the port's ``init_params``, CBTD-pruned at
+    gamma=0.9375, M=64, with the kept LSTM weights scaled by the inverse
+    keep fraction 1/(1-gamma) = 16 (as inverted dropout does).  Without
+    that gain the pruned random network's hidden state never moves by
+    theta=0.3 in a frame: layer 2 receives no delta and every logit is
+    exactly 0, which would make the serving checks vacuous."""
+    import torch
+
+    gen = torch.Generator().manual_seed(seed)
+    params = lstm_am.cbtd_prune_stacks(
+        lstm_am.init_params(gen, am_cfg, device="cuda"), gamma=GAMMA, m=M)
+    gain = 1.0 / (1.0 - GAMMA)
+    params["lstm"] = [{**lp, "w_x": lp["w_x"] * gain, "w_h": lp["w_h"] * gain}
+                      for lp in params["lstm"]]
+    return params
+
+
+# -- phase 2: kernels against their plain versions ---------------------------
+
+
+def kernel_checks(torch, layer2, seed: int):
+    """Each kernel vs its plain version at the main path's shapes."""
+    from repro_torch.core import cbcsc_decode
+    from repro_torch.kernels import delta_encode as de
+    from repro_torch.kernels import lstm_pointwise as lp
+    from repro_torch.kernels import ops, ref
+    from repro_torch.kernels import stsp_spmv as sp
+
+    dev = layer2.enc.val.device
+    g = torch.Generator(device=dev).manual_seed(seed)
+    rows = {}
+
+    # delta_encode: B=16 over both layers' state widths, fp32 and Q8.8
+    cases = []
+    for f, act_bits in ((1147, None), (2048, None), (2048, 16)):
+        x = torch.randn((CAPACITY, f), generator=g, device=dev)
+        xh = x + 0.3 * torch.randn((CAPACITY, f), generator=g, device=dev)
+        got = de.delta_encode(x, xh, 0.3, act_bits)
+        want = de.plain(x, xh, 0.3, act_bits)
+        err = max(max_err(got[0], want[0]), max_err(got[1], want[1]))
+        check(err <= TOL_ELEMENTWISE,
+              f"delta_encode F={f} act_bits={act_bits}: max err {err}")
+        check(torch.equal(got[2], want[2]),
+              f"delta_encode F={f} act_bits={act_bits}: fired counts differ")
+        cases.append({
+            "case": f"B={CAPACITY} F={f} act_bits={act_bits}",
+            "max_abs_err": err,
+            "ms": time_ms(torch, lambda: de.delta_encode(x, xh, 0.3,
+                                                         act_bits)),
+            "kernel_device_ms": device_ms(
+                torch, lambda: de.delta_encode(x, xh, 0.3, act_bits),
+                "delta_encode_kernel"),
+            "plain_ms": time_ms(torch, lambda: de.plain(x, xh, 0.3,
+                                                        act_bits)),
+            "bytes": 4 * CAPACITY * f * 4 + CAPACITY * 4,
+        })
+    main = cases[1]
+    rows["delta_encode"] = dict(
+        main, source="src/repro_torch/kernels/csrc/spartus_kernels.cu",
+        replaces="src/repro/kernels/delta_encode.py:48", library_ms=None,
+        cases=cases)
+
+    # lstm_pointwise: [16, 4, 1024]
+    h_dim = 1024
+    dm = torch.randn((CAPACITY, 4, h_dim), generator=g, device=dev)
+    c = torch.randn((CAPACITY, h_dim), generator=g, device=dev)
+    got, want = lp.lstm_pointwise(dm, c), lp.plain(dm, c)
+    err = max(max_err(got[0], want[0]), max_err(got[1], want[1]))
+    check(err <= TOL_ELEMENTWISE, f"lstm_pointwise: max err {err}")
+    library_ms = None
+    if hasattr(torch.ops.aten, "_thnn_fused_lstm_cell"):
+        # PyTorch's fused LSTM cell (gate order i, f, g, o) on the same
+        # values; the reorder happens outside the timed call
+        fused = torch.ops.aten._thnn_fused_lstm_cell
+        gates = dm[:, [0, 2, 1, 3]].reshape(CAPACITY, 4 * h_dim).contiguous()
+        zeros = torch.zeros_like(gates)
+        check(max_err(fused(gates, zeros, c)[0], want[0]) <= 1e-5,
+              "library LSTM cell disagrees with the plain version")
+        library_ms = time_ms(torch, lambda: fused(gates, zeros, c))
+    rows["lstm_pointwise"] = {
+        "case": f"B={CAPACITY} H={h_dim}", "max_abs_err": err,
+        "ms": time_ms(torch, lambda: lp.lstm_pointwise(dm, c)),
+        "kernel_device_ms": device_ms(torch, lambda: lp.lstm_pointwise(dm, c),
+                                      "lstm_pointwise_kernel"),
+        "plain_ms": time_ms(torch, lambda: lp.plain(dm, c)),
+        "bytes": (CAPACITY * 5 * h_dim + 2 * CAPACITY * h_dim) * 4,
+        "library_ms": library_ms,
+        "source": "src/repro_torch/kernels/csrc/spartus_kernels.cu",
+        "replaces": "src/repro/kernels/lstm_pointwise.py:33",
+    }
+
+    # the CBCSC SpMV on the packed full-width layer 2, NZI lists built by
+    # the serving CTRL stage from deltas with ~30% of the columns fired
+    enc, s = layer2.enc, layer2.enc.s
+    q, m, blen = enc.val.shape
+    fired = torch.rand((CAPACITY, q), generator=g, device=dev) < 0.3
+    delta = torch.where(fired, torch.randn((CAPACITY, q), generator=g,
+                                           device=dev), 0.0)
+    idx, ds, _ = ops.select_active_columns_batch(delta, layer2.capacity)
+    k = idx.shape[1]
+    scale = layer2.scale
+    val8 = torch.round(enc.val / scale).to(torch.int8)
+    lidx8 = enc.lidx.to(torch.int8)
+    w_csr = cbcsc_decode(enc, torch.float32).to_sparse_csr()
+
+    def spmv_bytes(ii, dd, v, l):
+        """Bytes the product must move: the NZI lists, once the slab of
+        every column active in any slot (the slots share one weight set)
+        and the output."""
+        b = ii.shape[0]
+        n_cols = torch.unique(ii[dd != 0]).numel()
+        return (b * k * 8 + n_cols * m * blen * (v.element_size()
+                                                  + l.element_size())
+                + b * s * m * 4)
+
+    for name, kern, b in (("stsp_spmv_scatter_batch", sp.SCATTER_BATCH_KERNEL,
+                           CAPACITY), ("stsp_spmv", sp.KERNEL, 1)):
+        cases = []
+        ii, dd = idx[:b].contiguous(), ds[:b].contiguous()
+        dense_ds = torch.zeros((q, b), device=dev)
+        dense_ds.scatter_add_(0, ii.long().T, dd.T)
+        lib = time_ms(torch, lambda: torch.sparse.mm(w_csr, dense_ds))
+        check(max_err(torch.sparse.mm(w_csr, dense_ds).T,
+                      ref.stsp_spmv_scatter_batch_ref(enc.val, enc.lidx, ii,
+                                                      dd, s)) <= TOL_SPMV,
+              f"{name}: library sparse product disagrees")
+        # int8 payloads are compared dequantized (y * scale), as the main
+        # path's SpMV epilogue consumes them
+        for label, v, l, sc in (("fp32", enc.val, enc.lidx, 1.0),
+                                ("int8", val8, lidx8, float(scale))):
+            if b == 1:
+                run = lambda: sp.stsp_spmv(v, l, ii[0], dd[0], s=s)[None]
+                plain = lambda: sp.plain(v, l, ii[0], dd[0], s)[None]
+            else:
+                run = lambda: sp.stsp_spmv_scatter_batch(v, l, ii, dd, s=s)
+                plain = lambda: sp.plain_batch(v, l, ii, dd, s)
+            got = run()
+            err = max_err(got * sc, plain() * sc)
+            check(err <= TOL_SPMV, f"{name} {label}: max err {err}")
+            # the plain scatter on the host adds each row's terms in list
+            # order, as the kernel does (the card's scatter_add does not)
+            host = sp.plain_batch(v.cpu(), l.cpu(), ii.cpu(), dd.cpu(), s)
+            err_host = max_err(got.cpu() * sc, host * sc)
+            check(err_host <= TOL_SPMV,
+                  f"{name} {label}: max err {err_host} vs the host scatter")
+            cases.append({
+                "case": f"B={b} K={k} Q={q} M={m} BLEN={blen} {label}",
+                "max_abs_err": err, "host_plain_max_abs_err": err_host,
+                "ms": time_ms(torch, run),
+                "kernel_device_ms": device_ms(torch, run, "stsp_spmv_kernel"),
+                "plain_ms": time_ms(torch, plain, iters=20),
+                "bytes": spmv_bytes(ii, dd, v, l),
+                "library_ms": lib,
+            })
+        check(kern.launches > 0, f"{name}: kernel was not launched")
+        rows[name] = dict(
+            cases[0], source="src/repro_torch/kernels/csrc/spartus_kernels.cu",
+            replaces=("src/repro/kernels/stsp_spmv.py:101" if b > 1 else
+                      "src/repro/kernels/stsp_spmv.py:150"),
+            cases=cases)
+    for row in rows.values():
+        row["route"] = "cuda"
+        row["bound_by"] = "bytes"
+        for case in row.get("cases", []) + [row]:
+            case["bound_ms"] = bound_ms(case["bytes"])
+    return rows
+
+
+# -- phase 3: serving at full width -----------------------------------------
+
+
+def serving_runs(torch, params, am_cfg, rng, out_dir: Path):
+    from repro_torch import serving as rt
+    from repro_torch.core import QuantConfig
+    from repro_torch.kernels import delta_encode as de
+    from repro_torch.kernels import lstm_pointwise as lp
+    from repro_torch.kernels import stsp_spmv as sp
+
+    counters = {"delta_encode": de.KERNEL, "lstm_pointwise": lp.KERNEL,
+                "stsp_spmv_scatter_batch": sp.SCATTER_BATCH_KERNEL,
+                "stsp_spmv": sp.KERNEL}
+    requests = [
+        rt.StreamRequest(req_id=i, arrival_step=0, feats=rng.standard_normal(
+            (int(rng.integers(MIN_FRAMES, MAX_FRAMES + 1)),
+             am_cfg.input_dim)).astype(np.float32))
+        for i in range(N_REQUESTS)]
+    cpu_requests = [rt.StreamRequest(r.req_id, 0,
+                                     r.feats[:CPU_CHECK_FRAMES])
+                    for r in requests[:CPU_CHECK_REQUESTS]]
+    warm_requests = [rt.StreamRequest(r.req_id, 0, r.feats[:2 * CHUNK_FRAMES])
+                     for r in requests[:CAPACITY]]
+    launches = {path: {name: 0 for name in counters}
+                for path in ("pool", "batch1")}
+
+    def zero_counts():
+        for kern in counters.values():
+            kern.launches = 0
+
+    def read_counts():
+        torch.cuda.synchronize()
+        return {name: kern.launches for name, kern in counters.items()}
+
+    report = []
+    for route, quant in (("auto", None), ("scatter", None),
+                         ("scatter", QuantConfig())):
+        label = route + ("+int8" if quant else "")
+        ecfg = rt.EngineConfig(theta=am_cfg.theta, gamma=GAMMA, m=M,
+                               spmv_path=route, quant=quant)
+        engine = rt.BatchedSpartusEngine(params, am_cfg, ecfg)
+        batch1 = rt.SpartusEngine(params, am_cfg, ecfg)
+        dense = [l.w_dense_t is not None for l in engine.layers]
+        # one short untimed wave first, so that no route's timed run pays
+        # the process's one-off set-up (allocator growth, library handles)
+        rt.serve_requests(engine, warm_requests, CAPACITY,
+                          chunk_frames=CHUNK_FRAMES)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        zero_counts()
+        t0 = time.perf_counter()
+        results, stats = rt.serve_requests(engine, requests, CAPACITY,
+                                           chunk_frames=CHUNK_FRAMES)
+        wall = time.perf_counter() - t0
+        counts = {"pool": read_counts()}
+        peak = torch.cuda.max_memory_allocated()
+        zero_counts()
+        b1 = [batch1.run_utterance(requests[i].feats).cpu().numpy()
+              for i in range(2)]
+        counts["batch1"] = read_counts()
+        for path, by_name in counts.items():
+            for name, n in by_name.items():
+                launches[path][name] += n
+        check(len(results) == N_REQUESTS and not stats.truncated,
+              f"{label}: {len(results)} of {N_REQUESTS} requests served")
+        for r, req in zip(results, requests):
+            check(r.logits.shape == (req.n_frames, am_cfg.n_classes)
+                  and np.isfinite(r.logits).all(),
+                  f"{label}: request {r.req_id} logits malformed")
+        check(all(np.abs(np.diff(r.logits, axis=0)).max() > 0
+                  for r in results),
+              f"{label}: some request's logits never change over time")
+        err_b1 = max(float(np.abs(results[i].logits - b1[i]).max())
+                     for i in range(2))
+        check(err_b1 <= TOL_POOL_VS_BATCH1,
+              f"{label}: pool vs batch-1 max err {err_b1}")
+        spmv = {"pool": "stsp_spmv_scatter_batch", "batch1": "stsp_spmv"}
+        for path, by_name in counts.items():
+            need = ["delta_encode", "lstm_pointwise"]
+            if not all(dense):
+                need.append(spmv[path])
+            for name in need:
+                check(by_name[name] > 0,
+                      f"{label}: {name} never launched on the {path} path")
+            for name in set(spmv.values()) - set(need):
+                check(by_name[name] == 0,
+                      f"{label}: {name} launched on the {path} path")
+
+        # the card vs the same pool on the CPU (plain versions)
+        gpu_small, _ = rt.serve_requests(engine, cpu_requests, CAPACITY,
+                                         chunk_frames=CHUNK_FRAMES)
+        cpu_engine = rt.BatchedSpartusEngine(params, am_cfg, ecfg,
+                                             device="cpu")
+        cpu_small, _ = rt.serve_requests(cpu_engine, cpu_requests, CAPACITY,
+                                         chunk_frames=CHUNK_FRAMES)
+        err_cpu = max(float(np.abs(a.logits - b.logits).max())
+                      for a, b in zip(gpu_small, cpu_small))
+        check(err_cpu <= TOL_CARD_VS_CPU,
+              f"{label}: card vs CPU max err {err_cpu}")
+        entry = {
+            "route": label, "dense_mirror_layers": dense,
+            "frames": stats.total_frames, "wall_s": wall,
+            "frames_per_s": stats.total_frames / wall,
+            "serve_frames_per_s": stats.frames_per_s,
+            "n_dispatches": stats.n_dispatches,
+            "sparsity": stats.sparsity,
+            "weight_payload_bytes": engine.weight_payload_bytes(),
+            "max_memory_allocated": peak,
+            "logits_abs_max": max(float(np.abs(r.logits).max())
+                                  for r in results),
+            "pool_vs_batch1_max_err": err_b1,
+            "card_vs_cpu_max_err": err_cpu,
+            "launches": counts,
+        }
+        print(f"serve {label}: {json.dumps(entry)}", flush=True)
+        report.append(entry)
+    (out_dir / "chip_smoke_serving.json").write_text(
+        json.dumps(report, indent=1))
+    return launches, requests
+
+
+def mirror_cost(torch, params, am_cfg, requests, seed: int, out_dir: Path):
+    """What the float64 dense-mirror GEMM costs against a plain fp32
+    ``torch.matmul``, and what fp32 would break.
+
+    Op level, at layer 2's shapes (B=16, Q=2048, 4H=4096): the product
+    with the mirror stored in float64 (the port), widened from fp32 on
+    every call, and in plain fp32, with each one's gap between row 0 of
+    the B=16 product and the same row computed alone.  End to end: the
+    dense route served with the port's float64 mirror and with an fp32
+    mirror and matmul swapped in (runs in the order f64, fp32, fp32,
+    f64), and the fp32 pool's gap to the fp32 batch-1 engine."""
+    from repro_torch import serving as rt
+    from repro_torch.kernels import ops
+
+    ecfg = rt.EngineConfig(theta=am_cfg.theta, gamma=GAMMA, m=M)
+    engine = rt.BatchedSpartusEngine(params, am_cfg, ecfg)
+    layer = engine.layers[1]
+    w64 = layer.w_dense_t
+    check(w64 is not None and w64.dtype == torch.float64,
+          "the fp32 pack's layer-2 mirror is not float64")
+    w32 = w64.float()
+    g = torch.Generator(device=w64.device).manual_seed(seed)
+    q = w64.shape[0]
+    fired = torch.rand((CAPACITY, q), generator=g, device=w64.device) < 0.3
+    ds = torch.where(fired, torch.randn((CAPACITY, q), generator=g,
+                                        device=w64.device), 0.0)
+    gemms = {"float64_at_rest": lambda a: ops._mirror_matmul(a, w64),
+             "float64_widened_per_call": lambda a: ops._mirror_matmul(a, w32),
+             "fp32_matmul": lambda a: a @ w32}
+    op = {}
+    for name, fn in gemms.items():
+        op[name] = {"ms": time_ms(torch, lambda: fn(ds)),
+                    "row0_b16_vs_b1": max_err(fn(ds)[0], fn(ds[:1])[0])}
+
+    fp32_mirror = lambda ds_, w: ds_ @ w         # noqa: E731
+    saved = ops._mirror_matmul
+
+    def serve(fp32: bool):
+        eng = rt.BatchedSpartusEngine(params, am_cfg, ecfg)
+        if fp32:
+            for l in eng.layers:
+                l.w_dense_t = l.w_dense_t.float()
+        ops._mirror_matmul = fp32_mirror if fp32 else saved
+        try:
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            t0 = time.perf_counter()
+            results, stats = rt.serve_requests(eng, requests, CAPACITY,
+                                               chunk_frames=CHUNK_FRAMES)
+            wall = time.perf_counter() - t0
+            run = {"fp32": fp32, "wall_s": wall,
+                   "frames_per_s": stats.total_frames / wall,
+                   "max_memory_allocated": torch.cuda.max_memory_allocated()}
+            if fp32:
+                b1 = rt.SpartusEngine(params, am_cfg, ecfg)
+                for l in b1.layers:
+                    l.w_dense_t = l.w_dense_t.float()
+                run["pool_vs_batch1_max_err"] = max(
+                    float(np.abs(results[i].logits - b1.run_utterance(
+                        requests[i].feats).cpu().numpy()).max())
+                    for i in range(2))
+            return run
+        finally:
+            ops._mirror_matmul = saved
+
+    runs = [serve(fp32) for fp32 in (False, True, True, False)]
+    report = {"op_layer2_b16": op, "serve_dense_route": runs}
+    (out_dir / "chip_smoke_mirror.json").write_text(
+        json.dumps(report, indent=1))
+    print(f"mirror gemm: {json.dumps(report)}", flush=True)
+
+
+def profile_serving(torch, params, am_cfg, requests, out_dir: Path):
+    """Device time by kernel over one wave of the scatter route (16
+    requests cut to 64 frames), and the device's idle share of the wall
+    time, from torch.profiler."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch import serving as rt
+
+    engine = rt.BatchedSpartusEngine(params, am_cfg, rt.EngineConfig(
+        theta=am_cfg.theta, gamma=GAMMA, m=M, spmv_path="scatter"))
+    wave = [rt.StreamRequest(r.req_id, 0, r.feats[:CPU_CHECK_FRAMES])
+            for r in requests[:CAPACITY]]
+    rt.serve_requests(engine, wave, CAPACITY, chunk_frames=CHUNK_FRAMES)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        rt.serve_requests(engine, wave, CAPACITY, chunk_frames=CHUNK_FRAMES)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    kernels = sorted(
+        ((e.key, getattr(e, "device_time_total",
+                         getattr(e, "cuda_time_total", 0.0)) / 1e6, e.count)
+         for e in prof.key_averages()), key=lambda r: -r[1])
+    busy = sum(t for _, t, _ in kernels)
+    report = {"route": "scatter", "frames": CAPACITY * CPU_CHECK_FRAMES,
+              "wall_s": wall, "device_busy_s": busy,
+              "device_idle_share": 1.0 - busy / wall if wall else None,
+              "by_kernel": [{"name": k[:90], "device_s": t, "count": n}
+                            for k, t, n in kernels[:15]]}
+    (out_dir / "chip_smoke_profile.json").write_text(
+        json.dumps(report, indent=1))
+    print(f"profile scatter: wall_s {wall:.4f} device_busy_s {busy:.4f} "
+          f"idle_share {report['device_idle_share']}", flush=True)
+    for row in report["by_kernel"][:8]:
+        print(f"  {row['device_s']:.5f} s  x{row['count']}  {row['name']}",
+              flush=True)
+
+
+def main() -> int:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--out", default=str(ROOT / "build" / "chip_smoke"),
+                    help="directory for the build log, serving report and "
+                         "profile")
+    args = ap.parse_args()
+
+    import torch
+
+    warnings.filterwarnings("ignore", message="Sparse CSR tensor support")
+    warnings.filterwarnings("ignore", message=".*Profiler clears events")
+    if not torch.cuda.is_available():
+        print("chip_smoke: torch.cuda.is_available() is False; this script "
+              "needs an NVIDIA GPU", file=sys.stderr)
+        return 1
+    sys.path.insert(0, str(ROOT / "src"))
+    from repro_torch import serving
+    from repro_torch.configs.spartus_lstm import DELTA_LSTM_2L_1024H
+    from repro_torch.kernels import _build
+    from repro_torch.models import lstm_am
+
+    out_dir = Path(args.out)
+    out_dir.mkdir(parents=True, exist_ok=True)
+
+    # phase 1: device
+    smi = nvidia_smi()
+    kind = torch.cuda.get_device_name(0)
+    print(f"device: {smi} | torch {torch.__version__} cuda "
+          f"{torch.version.cuda} | {kind}", flush=True)
+
+    # phase 2: build + kernels
+    t0 = time.perf_counter()
+    lib = _build.build()
+    print(f"build: {lib.name} in {time.perf_counter() - t0:.1f} s", flush=True)
+    (out_dir / "nvcc_build.log").write_text(lib.with_suffix(".log")
+                                            .read_text())
+    am_cfg = DELTA_LSTM_2L_1024H
+    params = servable_params(lstm_am, am_cfg, args.seed)
+    layer2 = serving.BatchedSpartusEngine(
+        params, am_cfg,
+        serving.EngineConfig(theta=am_cfg.theta, spmv_path="scatter"),
+    ).layers[1]
+    rows = kernel_checks(torch, layer2, args.seed)
+    for name, row in rows.items():
+        for case in row.get("cases", [row]):
+            print(f"kernel {name} [{case['case']}]: max_abs_err "
+                  f"{case['max_abs_err']:.3g} ms {case['ms']:.5f} "
+                  f"kernel_device_ms {case['kernel_device_ms']} plain_ms "
+                  f"{case['plain_ms']:.5f} bytes {case['bytes']} "
+                  f"bound_ms {case['bound_ms']:.6f} "
+                  f"library_ms {case.get('library_ms')}", flush=True)
+
+    # phase 3: serving at full width
+    launches, requests = serving_runs(torch, params, am_cfg,
+                                      np.random.default_rng(args.seed),
+                                      out_dir)
+    mirror_cost(torch, params, am_cfg, requests, args.seed, out_dir)
+    profile_serving(torch, params, am_cfg, requests, out_dir)
+
+    kernels = []
+    for name, row in rows.items():
+        # stsp_spmv (B=1) serves only the batch-1 engine; the other three
+        # are counted on the pool, the main path
+        path = "batch1" if name == "stsp_spmv" else "pool"
+        kernels.append({
+            "name": name, "route": row["route"], "source": row["source"],
+            "replaces": row["replaces"], "launches": launches[path][name],
+            "launches_by_path": {p: launches[p][name] for p in launches},
+            "max_abs_err": row["max_abs_err"], "ms": row["ms"],
+            "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
+            "bound_by": row["bound_by"], "library_ms": row["library_ms"],
+            "kernel_device_ms": row["kernel_device_ms"], "bytes": row["bytes"],
+            "cases": row.get("cases", []),
+        })
+    for k in kernels:
+        check(k["launches"] > 0, f"{k['name']}: no launch on its path")
+    print(smi, flush=True)
+    print(json.dumps({"kernels": kernels}), flush=True)
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}),
+        flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    try:
+        sys.exit(main())
+    except SmokeFailure as exc:
+        print(f"chip_smoke: FAILED: {exc}", file=sys.stderr)
+        sys.exit(1)

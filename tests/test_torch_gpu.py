@@ -1,0 +1,154 @@
+"""The port's CUDA kernels on the card, against their plain PyTorch
+versions (1e-6 elementwise, 1e-5 SpMV, exact fired counts), and the pool
+on the card against the same pool on the host.
+
+Every test needs an NVIDIA GPU and nvcc (the kernels build at first use)
+and skips elsewhere; whether a card exists is decided in a fixture, never
+at import time.  This file imports no JAX, so it runs on a machine that
+has only PyTorch:
+
+    python -m pytest -q -m gpu tests/test_torch_gpu.py
+"""
+import numpy as np
+import pytest
+import torch
+
+from repro_torch.core import apply_cbtd, blen_for, cbcsc_encode
+from repro_torch.kernels import delta_encode as de
+from repro_torch.kernels import lstm_pointwise as lp
+from repro_torch.kernels import ops
+from repro_torch.kernels import stsp_spmv as sp
+from repro_torch.models import lstm_am
+from repro_torch.serving import BatchedSpartusEngine, EngineConfig
+from repro_torch.serving import SpartusEngine, serve_requests
+
+pytestmark = pytest.mark.gpu
+
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU: CUDA kernels have no CPU mode")
+    return torch.device("cuda")
+
+
+def _gen(seed):
+    return torch.Generator().manual_seed(seed)
+
+
+def _max_err(a, b):
+    return float((a.cpu().double() - b.cpu().double()).abs().max())
+
+
+@pytest.mark.parametrize("f,act_bits", [(1147, None), (2048, None),
+                                        (2048, 16), (37, 16)])
+def test_delta_encode_kernel_matches_plain(cuda, f, act_bits):
+    x = torch.randn((16, f), generator=_gen(f))
+    xh = x + 0.3 * torch.randn((16, f), generator=_gen(f + 1))
+    before = de.KERNEL.launches
+    got = de.delta_encode(x.to(cuda), xh.to(cuda), 0.3, act_bits)
+    want = de.plain(x, xh, 0.3, act_bits)
+    assert de.KERNEL.launches == before + 1
+    assert torch.equal(got[2].cpu(), want[2])
+    assert _max_err(got[0], want[0]) <= 1e-6
+    assert _max_err(got[1], want[1]) <= 1e-6
+
+
+@pytest.mark.parametrize("b,h", [(16, 1024), (3, 700)])
+def test_lstm_pointwise_kernel_matches_plain(cuda, b, h):
+    dm = torch.randn((b, 4, h), generator=_gen(h)) * 4
+    c = torch.randn((b, h), generator=_gen(h + 1)) * 2
+    before = lp.KERNEL.launches
+    got = lp.lstm_pointwise(dm.to(cuda), c.to(cuda))
+    want = lp.plain(dm, c)
+    assert lp.KERNEL.launches == before + 1
+    for a, w in zip(got, want):
+        assert _max_err(a, w) <= 1e-6
+
+
+def _cbcsc(seed, h, q, m, gamma):
+    w = apply_cbtd(torch.randn((h, q), generator=_gen(seed)) * 0.1, gamma, m)
+    return cbcsc_encode(w, m, blen=blen_for(h, m, gamma))
+
+
+@pytest.mark.parametrize("h,q,m,gamma", [(4096, 2048, 64, 0.9375),
+                                         (128, 96, 16, 0.75)])
+@pytest.mark.parametrize("payload", ["fp32", "int8"])
+def test_stsp_spmv_kernels_match_plain(cuda, h, q, m, gamma, payload):
+    enc = _cbcsc(q, h, q, m, gamma)
+    val, lidx, scale = enc.val, enc.lidx, 1.0
+    if payload == "int8":
+        scale = float(2.0 ** np.ceil(np.log2(float(val.abs().max()) / 127)))
+        val, lidx = torch.round(val / scale).to(torch.int8), lidx.to(torch.int8)
+    fired = torch.rand((16, q), generator=_gen(1)) < 0.3
+    delta = torch.where(fired, torch.randn((16, q), generator=_gen(2)), 0.0)
+    idx, ds, _ = ops.select_active_columns_batch(delta, q // 2)
+    idx[0, 1] = idx[0, 0]                       # a duplicate column
+    dev = [t.to(cuda) for t in (val, lidx, idx, ds)]
+    before = (sp.SCATTER_BATCH_KERNEL.launches, sp.KERNEL.launches)
+    got = sp.stsp_spmv_scatter_batch(*dev, s=enc.s)
+    one = sp.stsp_spmv(dev[0], dev[1], dev[2][3], dev[3][3], s=enc.s)
+    assert (sp.SCATTER_BATCH_KERNEL.launches, sp.KERNEL.launches) == (
+        before[0] + 1, before[1] + 1)
+    # the host scatter adds in list order, as the kernel does
+    assert _max_err(got * scale, sp.plain_batch(val, lidx, idx, ds, enc.s)
+                    * scale) <= 1e-5
+    # the batch-1 entry against the one-hot spec
+    assert _max_err(one * scale, sp.plain(val, lidx, idx[3], ds[3], enc.s)
+                    * scale) <= 1e-5
+
+
+def test_kernel_wrappers_reject_what_the_kernels_do_not_take(cuda):
+    x = torch.zeros((2, 8), device=cuda)
+    with pytest.raises(TypeError):
+        de.delta_encode(x.double(), x.double(), 0.1)
+    with pytest.raises(ValueError, match="contiguous"):
+        lp.lstm_pointwise(torch.zeros((2, 8, 4), device=cuda).transpose(1, 2),
+                          torch.zeros((2, 8), device=cuda))
+    with pytest.raises(ValueError, match="one CUDA device"):
+        de.delta_encode(x, x.cpu(), 0.1)
+    val = torch.zeros((4, 2, 2), device=cuda, dtype=torch.float16)
+    lidx = torch.zeros((4, 2, 2), device=cuda, dtype=torch.int32)
+    idx = torch.zeros((1, 3), device=cuda, dtype=torch.int32)
+    with pytest.raises(TypeError, match="float32/int8"):
+        sp.stsp_spmv_scatter_batch(val, lidx, idx, idx.float(), s=4)
+
+
+@pytest.mark.parametrize("route", ["scatter", "dense"])
+@pytest.mark.parametrize("quant", [False, True])
+def test_pool_on_card_matches_host_pool_and_batch1(cuda, route, quant):
+    from repro_torch.core import QuantConfig
+
+    cfg = lstm_am.LSTMAMConfig(input_dim=20, hidden_dim=64, n_layers=2,
+                               n_classes=11)
+    params = lstm_am.cbtd_prune_stacks(
+        lstm_am.init_params(_gen(0), cfg, device="cpu"), gamma=0.75, m=8)
+    ecfg = EngineConfig(theta=0.05, gamma=0.75, m=8, spmv_path=route,
+                        quant=QuantConfig() if quant else None)
+    rng = np.random.default_rng(0)
+    reqs = [(i, rng.standard_normal((t, 20)).astype(np.float32))
+            for i, t in enumerate([9, 6, 12, 7])]
+    card, _ = serve_requests(BatchedSpartusEngine(params, cfg, ecfg,
+                                                  device=cuda), reqs, 3,
+                             chunk_frames=4)
+    host, _ = serve_requests(BatchedSpartusEngine(params, cfg, ecfg,
+                                                  device="cpu"), reqs, 3,
+                             chunk_frames=4)
+    batch1 = SpartusEngine(params, cfg, ecfg, device=cuda)
+    for a, b, (_, feats) in zip(card, host, reqs):
+        np.testing.assert_allclose(a.logits, b.logits, atol=1e-5)
+        np.testing.assert_allclose(
+            a.logits, batch1.run_utterance(feats).cpu().numpy(), atol=1e-5)
+
+
+def test_engine_refuses_tf32_head(cuda):
+    cfg = lstm_am.LSTMAMConfig(input_dim=20, hidden_dim=64, n_layers=2,
+                               n_classes=11)
+    params = lstm_am.init_params(_gen(0), cfg, device="cpu")
+    saved = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = True
+    try:
+        with pytest.raises(RuntimeError, match="allow_tf32"):
+            SpartusEngine(params, cfg, EngineConfig(), device=cuda)
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = saved
