@@ -13,10 +13,12 @@ Phases; any failure exits non-zero before a result line is printed:
 2. Build and kernels: builds the CUDA kernels from ``src/repro_torch/
    kernels/csrc`` with nvcc, then holds each of the four kernels against
    its plain PyTorch version on the card at the serving shapes of the
-   paper's 2x1024 DeltaLSTM (1e-6 elementwise, 1e-5 for the SpMV, whose
-   fp32 sum order may differ, exact fired counts) and times the kernel,
-   the plain version and, where one exists, a PyTorch library call that
-   computes the same function.
+   paper's 2x1024 DeltaLSTM (1e-6 elementwise, exact fired counts; the
+   SpMV bit-identical to the plain scatter on the host, whose per-row sum
+   order it keeps, and within 1e-5 of the card's plain versions, which
+   sum in another order) and times the kernel, the plain version and,
+   where one exists, a PyTorch library call that computes the same
+   function (per call, and its device time alone).
 3. Serving at full width: ``DELTA_LSTM_2L_1024H`` (D=123, H=1024, 2
    layers, theta=0.3) from seeded weights, CBTD-pruned at gamma=0.9375,
    M=64 (kept weights scaled by 1/(1-gamma): see ``servable_params``),
@@ -92,10 +94,17 @@ def time_ms(torch, fn, iters: int = 100, warmup: int = 5) -> float:
     return start.elapsed_time(end) / iters
 
 
+def self_device_us(evt) -> float:
+    """An event's own device time (its children's excluded), so that a
+    sum over every event counts each kernel once."""
+    return getattr(evt, "self_device_time_total",
+                   getattr(evt, "self_cuda_time_total", 0.0))
+
+
 def device_ms(torch, fn, kernel: str, iters: int = 50):
-    """Mean device time of the CUDA kernels whose name contains
-    ``kernel`` per call of ``fn``, from torch.profiler; None if the
-    profiler recorded no such kernel."""
+    """Mean device time of the device events whose name contains
+    ``kernel`` (every event of the call for "") per call of ``fn``, from
+    torch.profiler; None if the profiler recorded no such event."""
     from torch.profiler import ProfilerActivity, profile
 
     fn()
@@ -104,11 +113,8 @@ def device_ms(torch, fn, kernel: str, iters: int = 50):
         for _ in range(iters):
             fn()
         torch.cuda.synchronize()
-    total_us = 0.0
-    for evt in prof.key_averages():
-        if kernel in evt.key:
-            total_us += getattr(evt, "device_time_total",
-                                getattr(evt, "cuda_time_total", 0.0))
+    total_us = sum(self_device_us(evt) for evt in prof.key_averages()
+                   if kernel in evt.key)
     return total_us / iters / 1e3 if total_us else None
 
 
@@ -141,15 +147,16 @@ def servable_params(lstm_am, am_cfg, seed: int):
 # -- phase 2: kernels against their plain versions ---------------------------
 
 
-def kernel_checks(torch, layer2, seed: int):
-    """Each kernel vs its plain version at the main path's shapes."""
+def kernel_checks(torch, layers, seed: int):
+    """Each kernel vs its plain version at the main path's shapes; the
+    batch SpMV also at layer 1's (Q=1147, K=573)."""
     from repro_torch.core import cbcsc_decode
     from repro_torch.kernels import delta_encode as de
     from repro_torch.kernels import lstm_pointwise as lp
     from repro_torch.kernels import ops, ref
     from repro_torch.kernels import stsp_spmv as sp
 
-    dev = layer2.enc.val.device
+    dev = layers[1].enc.val.device
     g = torch.Generator(device=dev).manual_seed(seed)
     rows = {}
 
@@ -181,7 +188,7 @@ def kernel_checks(torch, layer2, seed: int):
     rows["delta_encode"] = dict(
         main, source="src/repro_torch/kernels/csrc/spartus_kernels.cu",
         replaces="src/repro/kernels/delta_encode.py:48", library_ms=None,
-        cases=cases)
+        library_device_ms=None, cases=cases)
 
     # lstm_pointwise: [16, 4, 1024]
     h_dim = 1024
@@ -190,7 +197,7 @@ def kernel_checks(torch, layer2, seed: int):
     got, want = lp.lstm_pointwise(dm, c), lp.plain(dm, c)
     err = max(max_err(got[0], want[0]), max_err(got[1], want[1]))
     check(err <= TOL_ELEMENTWISE, f"lstm_pointwise: max err {err}")
-    library_ms = None
+    library_ms = library_device_ms = None
     if hasattr(torch.ops.aten, "_thnn_fused_lstm_cell"):
         # PyTorch's fused LSTM cell (gate order i, f, g, o) on the same
         # values; the reorder happens outside the timed call
@@ -200,6 +207,8 @@ def kernel_checks(torch, layer2, seed: int):
         check(max_err(fused(gates, zeros, c)[0], want[0]) <= 1e-5,
               "library LSTM cell disagrees with the plain version")
         library_ms = time_ms(torch, lambda: fused(gates, zeros, c))
+        library_device_ms = device_ms(torch, lambda: fused(gates, zeros, c),
+                                      "")
     rows["lstm_pointwise"] = {
         "case": f"B={CAPACITY} H={h_dim}", "max_abs_err": err,
         "ms": time_ms(torch, lambda: lp.lstm_pointwise(dm, c)),
@@ -207,50 +216,42 @@ def kernel_checks(torch, layer2, seed: int):
                                       "lstm_pointwise_kernel"),
         "plain_ms": time_ms(torch, lambda: lp.plain(dm, c)),
         "bytes": (CAPACITY * 5 * h_dim + 2 * CAPACITY * h_dim) * 4,
-        "library_ms": library_ms,
+        "library_ms": library_ms, "library_device_ms": library_device_ms,
         "source": "src/repro_torch/kernels/csrc/spartus_kernels.cu",
         "replaces": "src/repro/kernels/lstm_pointwise.py:33",
     }
 
-    # the CBCSC SpMV on the packed full-width layer 2, NZI lists built by
-    # the serving CTRL stage from deltas with ~30% of the columns fired
-    enc, s = layer2.enc, layer2.enc.s
-    q, m, blen = enc.val.shape
-    fired = torch.rand((CAPACITY, q), generator=g, device=dev) < 0.3
-    delta = torch.where(fired, torch.randn((CAPACITY, q), generator=g,
-                                           device=dev), 0.0)
-    idx, ds, _ = ops.select_active_columns_batch(delta, layer2.capacity)
-    k = idx.shape[1]
-    scale = layer2.scale
-    val8 = torch.round(enc.val / scale).to(torch.int8)
-    lidx8 = enc.lidx.to(torch.int8)
-    w_csr = cbcsc_decode(enc, torch.float32).to_sparse_csr()
-
-    def spmv_bytes(ii, dd, v, l):
-        """Bytes the product must move: the NZI lists, once the slab of
-        every column active in any slot (the slots share one weight set)
-        and the output."""
-        b = ii.shape[0]
-        n_cols = torch.unique(ii[dd != 0]).numel()
-        return (b * k * 8 + n_cols * m * blen * (v.element_size()
-                                                  + l.element_size())
-                + b * s * m * 4)
-
-    for name, kern, b in (("stsp_spmv_scatter_batch", sp.SCATTER_BATCH_KERNEL,
-                           CAPACITY), ("stsp_spmv", sp.KERNEL, 1)):
-        cases = []
+    # the CBCSC SpMV on the packed full-width layers, NZI lists built by
+    # the serving CTRL stage from deltas with ~30% of the columns fired:
+    # layer 2 (Q=2048, K=1024) at B=16 and B=1, layer 1 (Q=1147, K=573)
+    # at B=16 as the batch kernel's extra cases
+    def spmv_cases(layer, name, b):
+        enc, s = layer.enc, layer.enc.s
+        q, m, blen = enc.val.shape
+        fired = torch.rand((CAPACITY, q), generator=g, device=dev) < 0.3
+        delta = torch.where(fired, torch.randn((CAPACITY, q), generator=g,
+                                               device=dev), 0.0)
+        idx, ds, _ = ops.select_active_columns_batch(delta, layer.capacity)
         ii, dd = idx[:b].contiguous(), ds[:b].contiguous()
+        k = ii.shape[1]
+        val8 = torch.round(enc.val / layer.scale).to(torch.int8)
+        lidx8 = enc.lidx.to(torch.int8)
+        w_csr = cbcsc_decode(enc, torch.float32).to_sparse_csr()
         dense_ds = torch.zeros((q, b), device=dev)
         dense_ds.scatter_add_(0, ii.long().T, dd.T)
-        lib = time_ms(torch, lambda: torch.sparse.mm(w_csr, dense_ds))
-        check(max_err(torch.sparse.mm(w_csr, dense_ds).T,
-                      ref.stsp_spmv_scatter_batch_ref(enc.val, enc.lidx, ii,
-                                                      dd, s)) <= TOL_SPMV,
-              f"{name}: library sparse product disagrees")
-        # int8 payloads are compared dequantized (y * scale), as the main
-        # path's SpMV epilogue consumes them
+        library = lambda: torch.sparse.mm(w_csr, dense_ds)  # noqa: E731
+        check(max_err(library().T, ref.stsp_spmv_scatter_batch_ref(
+            enc.val, enc.lidx, ii, dd, s)) <= TOL_SPMV,
+            f"{name}: library sparse product disagrees")
+        lib_ms = time_ms(torch, library)
+        lib_device_ms = device_ms(torch, library, "")
+        # bytes the product must move: the NZI lists, once the slab of
+        # every column active in any slot (the slots share one weight
+        # set) and the output
+        n_cols = torch.unique(ii[dd != 0]).numel()
+        cases = []
         for label, v, l, sc in (("fp32", enc.val, enc.lidx, 1.0),
-                                ("int8", val8, lidx8, float(scale))):
+                                ("int8", val8, lidx8, float(layer.scale))):
             if b == 1:
                 run = lambda: sp.stsp_spmv(v, l, ii[0], dd[0], s=s)[None]
                 plain = lambda: sp.plain(v, l, ii[0], dd[0], s)[None]
@@ -258,23 +259,36 @@ def kernel_checks(torch, layer2, seed: int):
                 run = lambda: sp.stsp_spmv_scatter_batch(v, l, ii, dd, s=s)
                 plain = lambda: sp.plain_batch(v, l, ii, dd, s)
             got = run()
-            err = max_err(got * sc, plain() * sc)
-            check(err <= TOL_SPMV, f"{name} {label}: max err {err}")
             # the plain scatter on the host adds each row's terms in list
-            # order, as the kernel does (the card's scatter_add does not)
+            # order, as the kernel does: bit-identical
             host = sp.plain_batch(v.cpu(), l.cpu(), ii.cpu(), dd.cpu(), s)
-            err_host = max_err(got.cpu() * sc, host * sc)
-            check(err_host <= TOL_SPMV,
-                  f"{name} {label}: max err {err_host} vs the host scatter")
+            check(torch.equal(got.cpu(), host),
+                  f"{name} {label} B={b} K={k}: differs from the host "
+                  f"scatter by {max_err(got.cpu(), host)}")
+            # the card's plain versions sum in another order (atomic
+            # scatter_add, or the one-hot einsum at B=1); int8 payloads
+            # are compared dequantized, as the SpMV epilogue consumes them
+            err = max_err(got * sc, plain() * sc)
+            check(err <= TOL_SPMV, f"{name} {label}: max err {err} vs the "
+                                   f"plain version on the card")
             cases.append({
                 "case": f"B={b} K={k} Q={q} M={m} BLEN={blen} {label}",
-                "max_abs_err": err, "host_plain_max_abs_err": err_host,
+                "max_abs_err": max_err(got.cpu(), host),
+                "card_plain_max_abs_err": err,
                 "ms": time_ms(torch, run),
                 "kernel_device_ms": device_ms(torch, run, "stsp_spmv_kernel"),
                 "plain_ms": time_ms(torch, plain, iters=20),
-                "bytes": spmv_bytes(ii, dd, v, l),
-                "library_ms": lib,
+                "bytes": (b * k * 8 + n_cols * m * blen * (
+                    v.element_size() + l.element_size()) + b * s * m * 4),
+                "library_ms": lib_ms, "library_device_ms": lib_device_ms,
             })
+        return cases
+
+    for name, kern, b in (("stsp_spmv_scatter_batch", sp.SCATTER_BATCH_KERNEL,
+                           CAPACITY), ("stsp_spmv", sp.KERNEL, 1)):
+        cases = spmv_cases(layers[1], name, b)
+        if b > 1:
+            cases += spmv_cases(layers[0], name, b)
         check(kern.launches > 0, f"{name}: kernel was not launched")
         rows[name] = dict(
             cases[0], source="src/repro_torch/kernels/csrc/spartus_kernels.cu",
@@ -484,8 +498,9 @@ def mirror_cost(torch, params, am_cfg, requests, seed: int, out_dir: Path):
 
 def profile_serving(torch, params, am_cfg, requests, out_dir: Path):
     """Device time by kernel over one wave of the scatter route (16
-    requests cut to 64 frames), and the device's idle share of the wall
-    time, from torch.profiler."""
+    requests cut to 64 frames), the device's idle share of the wall time,
+    and the SpMV's device time split by layer (each frame-step launches
+    layer 1's SpMV, then layer 2's), from torch.profiler."""
     from torch.profiler import ProfilerActivity, profile
 
     from repro_torch import serving as rt
@@ -501,20 +516,29 @@ def profile_serving(torch, params, am_cfg, requests, out_dir: Path):
         rt.serve_requests(engine, wave, CAPACITY, chunk_frames=CHUNK_FRAMES)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-    kernels = sorted(
-        ((e.key, getattr(e, "device_time_total",
-                         getattr(e, "cuda_time_total", 0.0)) / 1e6, e.count)
-         for e in prof.key_averages()), key=lambda r: -r[1])
+    kernels = sorted(((e.key, self_device_us(e) / 1e6, e.count)
+                      for e in prof.key_averages()), key=lambda r: -r[1])
     busy = sum(t for _, t, _ in kernels)
+    spmv = sorted((e for e in prof.events() if "stsp_spmv_kernel" in e.name),
+                  key=lambda e: e.time_range.start)
+    by_layer = []
+    for layer in (0, 1):
+        evts = spmv[layer::2]
+        total = sum(e.time_range.elapsed_us() for e in evts) / 1e6
+        by_layer.append({"layer": layer + 1, "launches": len(evts),
+                         "device_s": total,
+                         "mean_ms": total / len(evts) * 1e3 if evts else None})
     report = {"route": "scatter", "frames": CAPACITY * CPU_CHECK_FRAMES,
               "wall_s": wall, "device_busy_s": busy,
               "device_idle_share": 1.0 - busy / wall if wall else None,
+              "spmv_by_layer": by_layer,
               "by_kernel": [{"name": k[:90], "device_s": t, "count": n}
                             for k, t, n in kernels[:15]]}
     (out_dir / "chip_smoke_profile.json").write_text(
         json.dumps(report, indent=1))
     print(f"profile scatter: wall_s {wall:.4f} device_busy_s {busy:.4f} "
           f"idle_share {report['device_idle_share']}", flush=True)
+    print(f"  spmv by layer: {json.dumps(by_layer)}", flush=True)
     for row in report["by_kernel"][:8]:
         print(f"  {row['device_s']:.5f} s  x{row['count']}  {row['name']}",
               flush=True)
@@ -559,11 +583,11 @@ def main() -> int:
                                             .read_text())
     am_cfg = DELTA_LSTM_2L_1024H
     params = servable_params(lstm_am, am_cfg, args.seed)
-    layer2 = serving.BatchedSpartusEngine(
+    layers = serving.BatchedSpartusEngine(
         params, am_cfg,
         serving.EngineConfig(theta=am_cfg.theta, spmv_path="scatter"),
-    ).layers[1]
-    rows = kernel_checks(torch, layer2, args.seed)
+    ).layers
+    rows = kernel_checks(torch, layers, args.seed)
     for name, row in rows.items():
         for case in row.get("cases", [row]):
             print(f"kernel {name} [{case['case']}]: max_abs_err "
@@ -571,7 +595,8 @@ def main() -> int:
                   f"kernel_device_ms {case['kernel_device_ms']} plain_ms "
                   f"{case['plain_ms']:.5f} bytes {case['bytes']} "
                   f"bound_ms {case['bound_ms']:.6f} "
-                  f"library_ms {case.get('library_ms')}", flush=True)
+                  f"library_ms {case.get('library_ms')} library_device_ms "
+                  f"{case.get('library_device_ms')}", flush=True)
 
     # phase 3: serving at full width
     launches, requests = serving_runs(torch, params, am_cfg,
@@ -592,6 +617,7 @@ def main() -> int:
             "max_abs_err": row["max_abs_err"], "ms": row["ms"],
             "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
             "bound_by": row["bound_by"], "library_ms": row["library_ms"],
+            "library_device_ms": row["library_device_ms"],
             "kernel_device_ms": row["kernel_device_ms"], "bytes": row["bytes"],
             "cases": row.get("cases", []),
         })

@@ -30,6 +30,7 @@ plain_batch = ref.stsp_spmv_scatter_batch_ref
 plain = ref.stsp_spmv_ref
 
 _TAGS = {torch.float32: "f32", torch.int8: "i8", torch.int32: "i32"}
+MAX_S = 512          # 16 lanes per PE keep <= 32 rows each in registers
 
 
 def _launch(kernel: _build.Kernel, val: torch.Tensor, lidx: torch.Tensor,
@@ -49,6 +50,9 @@ def _launch(kernel: _build.Kernel, val: torch.Tensor, lidx: torch.Tensor,
         raise ValueError(f"{kernel.name}: idx and ds_vals must be the same "
                          f"[B, K], got {tuple(idx.shape)} and "
                          f"{tuple(ds_vals.shape)}")
+    if s > MAX_S:
+        raise ValueError(f"{kernel.name}: S={s} rows per PE exceeds the "
+                         f"kernel's {MAX_S}")
     q, m, blen = val.shape
     b, k = idx.shape
     y = torch.empty((b, s * m), dtype=torch.float32, device=device)

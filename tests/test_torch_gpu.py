@@ -1,6 +1,7 @@
 """The port's CUDA kernels on the card, against their plain PyTorch
-versions (1e-6 elementwise, 1e-5 SpMV, exact fired counts), and the pool
-on the card against the same pool on the host.
+versions (1e-6 elementwise, exact fired counts, and the SpMV bit-identical
+to the host scatter, whose per-row sum order it keeps), and the pool on
+the card against the same pool on the host.
 
 Every test needs an NVIDIA GPU and nvcc (the kernels build at first use)
 and skips elsewhere; whether a card exists is decided in a fixture, never
@@ -71,6 +72,14 @@ def _cbcsc(seed, h, q, m, gamma):
     return cbcsc_encode(w, m, blen=blen_for(h, m, gamma))
 
 
+def _int8(val, lidx, s):
+    """The quantized pack's storage: int8 codes at a power-of-two scale,
+    lidx int8 where S fits it (int32 otherwise)."""
+    scale = float(2.0 ** np.ceil(np.log2(float(val.abs().max()) / 127)))
+    val8 = torch.round(val / scale).to(torch.int8)
+    return val8, lidx.to(torch.int8) if s <= 127 else lidx, scale
+
+
 @pytest.mark.parametrize("h,q,m,gamma", [(4096, 2048, 64, 0.9375),
                                          (128, 96, 16, 0.75)])
 @pytest.mark.parametrize("payload", ["fp32", "int8"])
@@ -78,8 +87,7 @@ def test_stsp_spmv_kernels_match_plain(cuda, h, q, m, gamma, payload):
     enc = _cbcsc(q, h, q, m, gamma)
     val, lidx, scale = enc.val, enc.lidx, 1.0
     if payload == "int8":
-        scale = float(2.0 ** np.ceil(np.log2(float(val.abs().max()) / 127)))
-        val, lidx = torch.round(val / scale).to(torch.int8), lidx.to(torch.int8)
+        val, lidx, scale = _int8(val, lidx, enc.s)
     fired = torch.rand((16, q), generator=_gen(1)) < 0.3
     delta = torch.where(fired, torch.randn((16, q), generator=_gen(2)), 0.0)
     idx, ds, _ = ops.select_active_columns_batch(delta, q // 2)
@@ -90,12 +98,66 @@ def test_stsp_spmv_kernels_match_plain(cuda, h, q, m, gamma, payload):
     one = sp.stsp_spmv(dev[0], dev[1], dev[2][3], dev[3][3], s=enc.s)
     assert (sp.SCATTER_BATCH_KERNEL.launches, sp.KERNEL.launches) == (
         before[0] + 1, before[1] + 1)
-    # the host scatter adds in list order, as the kernel does
-    assert _max_err(got * scale, sp.plain_batch(val, lidx, idx, ds, enc.s)
-                    * scale) <= 1e-5
-    # the batch-1 entry against the one-hot spec
+    # the host scatter adds each row's terms in list order, as the kernel
+    # does: bit-identical, at B=16 and at B=1
+    assert torch.equal(got.cpu(), sp.plain_batch(val, lidx, idx, ds, enc.s))
+    assert torch.equal(one.cpu(), sp.plain_batch(val, lidx, idx[3:4],
+                                                 ds[3:4], enc.s)[0])
+    # the batch-1 entry against the one-hot spec (another sum order)
     assert _max_err(one * scale, sp.plain(val, lidx, idx[3], ds[3], enc.s)
                     * scale) <= 1e-5
+
+
+# (h, q, m, gamma, b, offset): S = h/m in {45, 40, 100, 512, 20}, no
+# multiple of 16, so a lane's row registers R run 4, 4, 8, 32, 2 with the
+# last partly past S; BLEN in {3, 10, 7, 16, 5} takes the kernel's
+# runtime-BLEN path, (4096, 64) its BLEN=4 one; K = q/2 is no multiple of
+# the 128-entry tile; m=12 gives blocks of P=2 PEs, the odd m=5 P=1 (one
+# half-warp idle); offset shifts val's base by one element (narrower
+# copies).
+SPMV_EDGES = [
+    (2880, 600, 64, 0.9375, 1, False),
+    (100, 40, 5, 0.75, 3, False),
+    (2880, 600, 64, 0.9375, 3, True),
+    (480, 200, 12, 0.75, 16, False),
+    (6400, 1000, 64, 0.9375, 16, False),
+    (4096, 64, 8, 0.96875, 3, False),
+    (4096, 600, 64, 0.9375, 16, True),
+]
+
+
+@pytest.mark.parametrize("h,q,m,gamma,b,offset", SPMV_EDGES)
+@pytest.mark.parametrize("payload", ["fp32", "int8", "fp32-lidx8"])
+def test_stsp_spmv_kernel_edges_exact(cuda, h, q, m, gamma, b, offset,
+                                      payload):
+    enc = _cbcsc(h + q, h, q, m, gamma)
+    val, lidx = enc.val, enc.lidx
+    if payload == "int8":
+        val, lidx, _ = _int8(val, lidx, enc.s)
+    elif payload == "fp32-lidx8" and enc.s <= 127:
+        lidx = lidx.to(torch.int8)
+    fired = torch.rand((b, q), generator=_gen(b)) < 0.4
+    delta = torch.where(fired, torch.randn((b, q), generator=_gen(b + 1)),
+                        0.0)
+    idx, ds, _ = ops.select_active_columns_batch(delta, q // 2)
+    idx[0, 1] = idx[0, 0]                       # a duplicate column
+    ds[:, 5] = 0.0                              # padding mid-list
+    idx[:, 7], idx[:, 9] = q + 5, -3            # out of range: skipped
+    # what the kernel must equal: the same list with the skipped entries
+    # turned into padding
+    bad = (idx < 0) | (idx >= q)
+    want = sp.plain_batch(val, lidx, torch.where(bad, 0, idx),
+                          torch.where(bad, 0.0, ds), enc.s)
+    dval = val.to(cuda)
+    if offset:
+        store = torch.zeros(val.numel() + 1, dtype=val.dtype, device=cuda)
+        store[1:] = dval.flatten()
+        dval = store[1:].view(val.shape)
+    dev = [lidx.to(cuda), idx.to(cuda), ds.to(cuda)]
+    got = sp.stsp_spmv_scatter_batch(dval, *dev, s=enc.s)
+    assert torch.equal(got.cpu(), want)
+    one = sp.stsp_spmv(dval, dev[0], dev[1][b - 1], dev[2][b - 1], s=enc.s)
+    assert torch.equal(one.cpu(), want[b - 1])
 
 
 def test_kernel_wrappers_reject_what_the_kernels_do_not_take(cuda):
@@ -112,6 +174,9 @@ def test_kernel_wrappers_reject_what_the_kernels_do_not_take(cuda):
     idx = torch.zeros((1, 3), device=cuda, dtype=torch.int32)
     with pytest.raises(TypeError, match="float32/int8"):
         sp.stsp_spmv_scatter_batch(val, lidx, idx, idx.float(), s=4)
+    with pytest.raises(ValueError, match="rows per PE"):
+        sp.stsp_spmv_scatter_batch(val.float(), lidx, idx, idx.float(),
+                                   s=sp.MAX_S + 1)
 
 
 @pytest.mark.parametrize("route", ["scatter", "dense"])

@@ -2,10 +2,11 @@
 kernel against the JAX package's Pallas kernels (run in interpret mode, as
 tests/test_kernels.py runs them) and against its XLA ops.
 
-Tolerances: 1e-6 for the elementwise kernels, 1e-5 for the SpMV (another
-fp32 summation order), exact for fired counts, NZI lists (tie order
-included) and the pool's frame/logit bookkeeping.  The CUDA kernels
-themselves are held against these plain versions on the card by
+Tolerances: 1e-6 for the elementwise kernels, 1e-5 for the SpMV against
+the Pallas kernels (another fp32 summation order), exact for fired counts,
+NZI lists (tie order included), the pool's frame/logit bookkeeping and the
+plain scatter against the list-order sum the CUDA SpMV keeps.  The CUDA
+kernels themselves are held against these plain versions on the card by
 tests/test_torch_gpu.py.
 """
 from pathlib import Path
@@ -192,6 +193,59 @@ def test_stsp_spmv_batch_routes_vs_reference_ops(scale):
                                             jnp.asarray(idx), jnp.asarray(ds))
     tg = ops.delta_spmv_dense_gather_batch(_t(w_dense), _t(idx), _t(ds))
     np.testing.assert_allclose(np.asarray(jg), tg.numpy(), atol=1e-5)
+
+
+def _list_order_scatter(val, lidx, idx, ds, s):
+    """The CUDA SpMV's order contract spelled out: every output row sums
+    its terms over the list in order (k, then j), each product and each
+    sum rounded to float32, skipping padding and out-of-range entries."""
+    q, m, blen = val.shape
+    y = np.zeros((idx.shape[0], s * m), np.float32)
+    for b, k in np.ndindex(*idx.shape):
+        d, col = np.float32(ds[b, k]), int(idx[b, k])
+        if d == 0 or not 0 <= col < q:
+            continue
+        for pe, j in np.ndindex(m, blen):
+            l = int(lidx[col, pe, j])
+            if 0 <= l < s:
+                term = np.float32(d * np.float32(val[col, pe, j]))
+                y[b, l * m + pe] = np.float32(y[b, l * m + pe] + term)
+    return y
+
+
+@pytest.mark.parametrize("case", ["cancellation", "random", "random-int8"])
+def test_scatter_batch_plain_sums_in_list_order(case):
+    """The plain scatter (the card kernel's exact yardstick) adds each
+    row's terms in list order, bit for bit."""
+    if case == "cancellation":
+        # row (l=1, pe=0) gets 1e8, then 1, then -1e8: in list order the 1
+        # is lost to rounding (0); any other order keeps it (1)
+        val = np.zeros((2, 2, 2), np.float32)
+        lidx = np.zeros((2, 2, 2), np.int32)
+        val[0, 0], lidx[0, 0] = [1e8, 1.0], [1, 1]
+        val[1, 0], lidx[1, 0] = [-1e8, 0.5], [1, 0]
+        val[:, 1] = [[3.0, -2.0], [0.25, 7.0]]
+        idx, ds = np.array([[0, 1]], np.int32), np.ones((1, 2), np.float32)
+        s = 2
+    else:
+        _, enc = _cbcsc_case(9, 128, 96, 16, 0.75)
+        val, lidx = np.asarray(enc.val), np.asarray(enc.lidx)
+        if case == "random-int8":
+            val, lidx, _ = _int8_payload(enc)
+        rng = np.random.default_rng(4)
+        idx = np.stack([rng.permutation(96)[:20] for _ in range(3)])
+        idx = idx.astype(np.int32)
+        ds = rng.standard_normal((3, 20)).astype(np.float32)
+        idx[:, -3:], ds[:, -3:] = 0, 0.0        # padded tail
+        ds[1, 4] = 0.0                          # padding mid-list
+        idx[0, 1] = idx[0, 0]                   # a duplicate column
+        s = enc.s
+    want = _list_order_scatter(val, lidx, idx, ds, s)
+    got = ref.stsp_spmv_scatter_batch_ref(_t(val), _t(lidx), _t(idx), _t(ds),
+                                          s).numpy()
+    np.testing.assert_array_equal(got, want)
+    if case == "cancellation":
+        assert got[0, 1 * 2 + 0] == 0.0
 
 
 # -- CTRL and the dense-mirror route ---------------------------------------------
