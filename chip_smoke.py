@@ -13,12 +13,15 @@ Phases; any failure exits non-zero before a result line is printed:
 2. Build and kernels: builds the CUDA kernels from ``src/repro_torch/
    kernels/csrc`` with nvcc, then holds each of the four kernels against
    its plain PyTorch version on the card at the serving shapes of the
-   paper's 2x1024 DeltaLSTM (1e-6 elementwise, exact fired counts; the
-   SpMV bit-identical to the plain scatter on the host, whose per-row sum
-   order it keeps, and within 1e-5 of the card's plain versions, which
-   sum in another order) and times the kernel, the plain version and,
-   where one exists, a PyTorch library call that computes the same
-   function (per call, and its device time alone).
+   paper's 2x1024 DeltaLSTM: the fused IPU and HPE layer-step stages
+   bit for bit (``torch.equal``, 12 of 16 slots active, state updated in
+   place), the reference's call shapes at 1e-6 with exact fired counts,
+   the SpMV bit-identical to the plain scatter on the host, whose per-row
+   sum order it keeps, and within 1e-5 of the card's plain versions,
+   which sum in another order.  Times the kernel, the plain version, the
+   PyTorch glue launches the fused stages replace and, where one exists,
+   a PyTorch library call that computes the same function (per call, and
+   device time alone).
 3. Serving at full width: ``DELTA_LSTM_2L_1024H`` (D=123, H=1024, 2
    layers, theta=0.3) from seeded weights, CBTD-pruned at gamma=0.9375,
    M=64 (kept weights scaled by 1/(1-gamma): see ``servable_params``),
@@ -31,7 +34,8 @@ Phases; any failure exits non-zero before a result line is printed:
    every kernel of the route was launched, counting the pool's launches
    and the batch-1 engine's apart.  Then the cost of the float64
    dense-mirror GEMM against a plain fp32 ``torch.matmul`` (``mirror_cost``)
-   and a profile of one scatter-route wave.
+   and a profile of one wave per route (device launches per layer-frame,
+   busy time, idle share).
 4. Prints ``{"kernels": [...]}`` and then, as the last line,
    ``{"ok": true, "device": {...}}``.
 
@@ -160,9 +164,51 @@ def kernel_checks(torch, layers, seed: int):
     g = torch.Generator(device=dev).manual_seed(seed)
     rows = {}
 
-    # delta_encode: B=16 over both layers' state widths, fp32 and Q8.8
+    # delta_encode: the fused IPU stage at B=16 over both layers' widths
+    # (layer 1 D=123, layer 2 D=1024; H=1024), fp32 and Q8.8, 12 of 16
+    # slots active; then the reference's call shape (the same kernel on a
+    # concatenated row, no mask) at both state widths
+    h_dim = 1024
+    active = torch.arange(CAPACITY, device=dev) % 4 != 3
+    n_active = int(active.sum())
+    am = active[:, None]
     cases = []
-    for f, act_bits in ((1147, None), (2048, None), (2048, 16)):
+    for d, act_bits in ((1024, None), (123, None), (1024, 16)):
+        f = d + h_dim
+        x = torch.randn((CAPACITY, d), generator=g, device=dev)
+        hid = torch.randn((CAPACITY, h_dim), generator=g, device=dev)
+        s_hat0 = (torch.cat([x, hid], -1)
+                  + 0.3 * torch.randn((CAPACITY, f), generator=g, device=dev))
+        got_state, want_state = s_hat0.clone(), s_hat0.clone()
+        got = de.delta_encode_step(x, hid, got_state, 0.3, active, act_bits)
+        want = de.plain_step(x, hid, want_state, 0.3, active, act_bits)
+        check(torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+              and torch.equal(got_state, want_state),
+              f"delta_encode_step D={d} act_bits={act_bits}: differs from "
+              f"its plain version")
+        state = s_hat0.clone()
+        run = lambda: de.delta_encode_step(x, hid, state, 0.3,  # noqa: E731
+                                           active, act_bits)
+        # the launches the engine made around the old kernel
+        glue = lambda: (torch.cat([x, hid], dim=-1),  # noqa: E731
+                        state.copy_(torch.where(am, want_state, state)))
+        cases.append({
+            "case": f"step B={CAPACITY} D={d} H={h_dim} act_bits={act_bits} "
+                    f"active={n_active}",
+            "max_abs_err": max(max_err(got[0], want[0]),
+                               max_err(got_state, want_state)),
+            "ms": time_ms(torch, run),
+            "kernel_device_ms": device_ms(torch, run, "delta_encode_kernel"),
+            "plain_ms": time_ms(torch, lambda: de.plain_step(
+                x, hid, want_state, 0.3, active, act_bits)),
+            "glue_ms": time_ms(torch, glue),
+            "glue_device_ms": device_ms(torch, glue, ""),
+            # s and s_hat read, delta and nnz written for every row,
+            # s_hat for the active ones, the mask read
+            "bytes": 4 * CAPACITY * f * 3 + 4 * n_active * f
+                     + 5 * CAPACITY,
+        })
+    for f, act_bits in ((1147, None), (2048, None)):
         x = torch.randn((CAPACITY, f), generator=g, device=dev)
         xh = x + 0.3 * torch.randn((CAPACITY, f), generator=g, device=dev)
         got = de.delta_encode(x, xh, 0.3, act_bits)
@@ -184,42 +230,86 @@ def kernel_checks(torch, layers, seed: int):
                                                         act_bits)),
             "bytes": 4 * CAPACITY * f * 4 + CAPACITY * 4,
         })
-    main = cases[1]
     rows["delta_encode"] = dict(
-        main, source="src/repro_torch/kernels/csrc/spartus_kernels.cu",
+        cases[0], source="src/repro_torch/kernels/csrc/spartus_kernels.cu",
         replaces="src/repro/kernels/delta_encode.py:48", library_ms=None,
         library_device_ms=None, cases=cases)
 
-    # lstm_pointwise: [16, 4, 1024]
-    h_dim = 1024
+    # lstm_pointwise: the fused accumulate + HPE stage at B=16, H=1024,
+    # 12 of 16 slots active (y small, so the delta memories stay in range
+    # over the timed calls); then the reference's call shape [16, 4, 1024]
+    dm0 = 2 * torch.randn((CAPACITY, 4 * h_dim), generator=g, device=dev)
+    y = 0.01 * torch.randn((CAPACITY, 4 * h_dim), generator=g, device=dev)
+    c0 = torch.randn((CAPACITY, h_dim), generator=g, device=dev)
+    hid0 = torch.randn((CAPACITY, h_dim), generator=g, device=dev)
+    got_state = [t.clone() for t in (dm0, c0, hid0)]
+    want_state = [t.clone() for t in (dm0, c0, hid0)]
+    got = lp.lstm_pointwise_step(got_state[0], y, *got_state[1:], active)
+    want = lp.plain_step(want_state[0], y, *want_state[1:], active)
+    check(torch.equal(got, want) and all(
+        torch.equal(a, b) for a, b in zip(got_state, want_state)),
+        "lstm_pointwise_step: differs from its plain version")
+    state = [t.clone() for t in (dm0, c0, hid0)]
+    run = lambda: lp.lstm_pointwise_step(state[0], y,  # noqa: E731
+                                         *state[1:], active)
+    glue_state = [t.clone() for t in (dm0, c0, hid0)]
+    plain_state = [t.clone() for t in (dm0, c0, hid0)]
+
+    def glue():
+        # the launches the engine made around the old kernel
+        dm, c, hid = glue_state
+        dm_new = dm + y
+        c.copy_(torch.where(am, want_state[1], c))
+        hid.copy_(torch.where(am, want, hid))
+        dm.copy_(torch.where(am, dm_new, dm))
+
+    library_ms = library_device_ms = None
+    if hasattr(torch.ops.aten, "_thnn_fused_lstm_cell"):
+        # PyTorch's fused LSTM cell (gate order i, f, g, o) adds its two
+        # gate inputs, as the step adds y to dm; the reorder happens
+        # outside the timed call
+        fused = torch.ops.aten._thnn_fused_lstm_cell
+        order = [0, 2, 1, 3]
+        gates_dm, gates_y = (
+            t.view(CAPACITY, 4, h_dim)[:, order].reshape(CAPACITY, -1)
+            .contiguous() for t in (dm0, y))
+        check(max_err(fused(gates_dm, gates_y, c0)[0], want) <= 1e-5,
+              "library LSTM cell disagrees with the plain version")
+        library_ms = time_ms(torch, lambda: fused(gates_dm, gates_y, c0))
+        library_device_ms = device_ms(
+            torch, lambda: fused(gates_dm, gates_y, c0), "")
+    cases = [{
+        "case": f"step B={CAPACITY} H={h_dim} active={n_active}",
+        "max_abs_err": max(max_err(a, b) for a, b in
+                           zip([got, *got_state], [want, *want_state])),
+        "ms": time_ms(torch, run),
+        "kernel_device_ms": device_ms(torch, run, "lstm_pointwise_kernel"),
+        "plain_ms": time_ms(torch, lambda: lp.plain_step(
+            plain_state[0], y, *plain_state[1:], active)),
+        "glue_ms": time_ms(torch, glue),
+        "glue_device_ms": device_ms(torch, glue, ""),
+        # dm, y, c read and h written for every row; dm, c, h written
+        # for the active ones; the mask read
+        "bytes": 4 * CAPACITY * h_dim * 10 + 4 * n_active * h_dim * 6
+                 + CAPACITY,
+        "library_ms": library_ms, "library_device_ms": library_device_ms,
+    }]
     dm = torch.randn((CAPACITY, 4, h_dim), generator=g, device=dev)
     c = torch.randn((CAPACITY, h_dim), generator=g, device=dev)
     got, want = lp.lstm_pointwise(dm, c), lp.plain(dm, c)
     err = max(max_err(got[0], want[0]), max_err(got[1], want[1]))
     check(err <= TOL_ELEMENTWISE, f"lstm_pointwise: max err {err}")
-    library_ms = library_device_ms = None
-    if hasattr(torch.ops.aten, "_thnn_fused_lstm_cell"):
-        # PyTorch's fused LSTM cell (gate order i, f, g, o) on the same
-        # values; the reorder happens outside the timed call
-        fused = torch.ops.aten._thnn_fused_lstm_cell
-        gates = dm[:, [0, 2, 1, 3]].reshape(CAPACITY, 4 * h_dim).contiguous()
-        zeros = torch.zeros_like(gates)
-        check(max_err(fused(gates, zeros, c)[0], want[0]) <= 1e-5,
-              "library LSTM cell disagrees with the plain version")
-        library_ms = time_ms(torch, lambda: fused(gates, zeros, c))
-        library_device_ms = device_ms(torch, lambda: fused(gates, zeros, c),
-                                      "")
-    rows["lstm_pointwise"] = {
+    cases.append({
         "case": f"B={CAPACITY} H={h_dim}", "max_abs_err": err,
         "ms": time_ms(torch, lambda: lp.lstm_pointwise(dm, c)),
         "kernel_device_ms": device_ms(torch, lambda: lp.lstm_pointwise(dm, c),
                                       "lstm_pointwise_kernel"),
         "plain_ms": time_ms(torch, lambda: lp.plain(dm, c)),
         "bytes": (CAPACITY * 5 * h_dim + 2 * CAPACITY * h_dim) * 4,
-        "library_ms": library_ms, "library_device_ms": library_device_ms,
-        "source": "src/repro_torch/kernels/csrc/spartus_kernels.cu",
-        "replaces": "src/repro/kernels/lstm_pointwise.py:33",
-    }
+    })
+    rows["lstm_pointwise"] = dict(
+        cases[0], source="src/repro_torch/kernels/csrc/spartus_kernels.cu",
+        replaces="src/repro/kernels/lstm_pointwise.py:33", cases=cases)
 
     # the CBCSC SpMV on the packed full-width layers, NZI lists built by
     # the serving CTRL stage from deltas with ~30% of the columns fired:
@@ -306,6 +396,16 @@ def kernel_checks(torch, layers, seed: int):
 # -- phase 3: serving at full width -----------------------------------------
 
 
+def make_requests(rt, am_cfg, rng):
+    """N_REQUESTS utterances of MIN_FRAMES..MAX_FRAMES seeded normal
+    frames, all arriving at step 0."""
+    return [
+        rt.StreamRequest(req_id=i, arrival_step=0, feats=rng.standard_normal(
+            (int(rng.integers(MIN_FRAMES, MAX_FRAMES + 1)),
+             am_cfg.input_dim)).astype(np.float32))
+        for i in range(N_REQUESTS)]
+
+
 def serving_runs(torch, params, am_cfg, rng, out_dir: Path):
     from repro_torch import serving as rt
     from repro_torch.core import QuantConfig
@@ -316,11 +416,7 @@ def serving_runs(torch, params, am_cfg, rng, out_dir: Path):
     counters = {"delta_encode": de.KERNEL, "lstm_pointwise": lp.KERNEL,
                 "stsp_spmv_scatter_batch": sp.SCATTER_BATCH_KERNEL,
                 "stsp_spmv": sp.KERNEL}
-    requests = [
-        rt.StreamRequest(req_id=i, arrival_step=0, feats=rng.standard_normal(
-            (int(rng.integers(MIN_FRAMES, MAX_FRAMES + 1)),
-             am_cfg.input_dim)).astype(np.float32))
-        for i in range(N_REQUESTS)]
+    requests = make_requests(rt, am_cfg, rng)
     cpu_requests = [rt.StreamRequest(r.req_id, 0,
                                      r.feats[:CPU_CHECK_FRAMES])
                     for r in requests[:CPU_CHECK_REQUESTS]]
@@ -496,52 +592,96 @@ def mirror_cost(torch, params, am_cfg, requests, seed: int, out_dir: Path):
     print(f"mirror gemm: {json.dumps(report)}", flush=True)
 
 
+# device events of PyTorch's own elementwise, copy and concatenate
+# kernels and of copies and fills, by name
+GLUE_EVENT_NAMES = ("elementwise", "CatArray", "Memcpy", "Memset")
+PROFILE_ROUTES = (("auto", False), ("scatter", False), ("scatter", True))
+
+
 def profile_serving(torch, params, am_cfg, requests, out_dir: Path):
-    """Device time by kernel over one wave of the scatter route (16
-    requests cut to 64 frames), the device's idle share of the wall time,
-    and the SpMV's device time split by layer (each frame-step launches
-    layer 1's SpMV, then layer 2's), from torch.profiler."""
+    """One wave (16 requests cut to 64 frames) of each route, under
+    torch.profiler: device launches per layer-frame (all of them, and
+    PyTorch's elementwise/copy/cat glue apart), device busy time and idle
+    share of the wall time, and, on the scatter route, the SpMV's device
+    time split by layer (each frame-step launches layer 1's SpMV, then
+    layer 2's).  Returns the report, one entry per route."""
     from torch.profiler import ProfilerActivity, profile
 
     from repro_torch import serving as rt
+    from repro_torch.core import QuantConfig
 
-    engine = rt.BatchedSpartusEngine(params, am_cfg, rt.EngineConfig(
-        theta=am_cfg.theta, gamma=GAMMA, m=M, spmv_path="scatter"))
     wave = [rt.StreamRequest(r.req_id, 0, r.feats[:CPU_CHECK_FRAMES])
             for r in requests[:CAPACITY]]
-    rt.serve_requests(engine, wave, CAPACITY, chunk_frames=CHUNK_FRAMES)
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
+    report = []
+    for route, quant in PROFILE_ROUTES:
+        engine = rt.BatchedSpartusEngine(params, am_cfg, rt.EngineConfig(
+            theta=am_cfg.theta, gamma=GAMMA, m=M, spmv_path=route,
+            quant=QuantConfig() if quant else None))
         rt.serve_requests(engine, wave, CAPACITY, chunk_frames=CHUNK_FRAMES)
+        steps = [0]
+        core = engine._step_core
+
+        def counted(*args, **kwargs):
+            steps[0] += 1
+            return core(*args, **kwargs)
+
+        engine._step_core = counted
         torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
-    kernels = sorted(((e.key, self_device_us(e) / 1e6, e.count)
-                      for e in prof.key_averages()), key=lambda r: -r[1])
-    busy = sum(t for _, t, _ in kernels)
-    spmv = sorted((e for e in prof.events() if "stsp_spmv_kernel" in e.name),
-                  key=lambda e: e.time_range.start)
-    by_layer = []
-    for layer in (0, 1):
-        evts = spmv[layer::2]
-        total = sum(e.time_range.elapsed_us() for e in evts) / 1e6
-        by_layer.append({"layer": layer + 1, "launches": len(evts),
-                         "device_s": total,
-                         "mean_ms": total / len(evts) * 1e3 if evts else None})
-    report = {"route": "scatter", "frames": CAPACITY * CPU_CHECK_FRAMES,
-              "wall_s": wall, "device_busy_s": busy,
-              "device_idle_share": 1.0 - busy / wall if wall else None,
-              "spmv_by_layer": by_layer,
-              "by_kernel": [{"name": k[:90], "device_s": t, "count": n}
-                            for k, t, n in kernels[:15]]}
-    (out_dir / "chip_smoke_profile.json").write_text(
-        json.dumps(report, indent=1))
-    print(f"profile scatter: wall_s {wall:.4f} device_busy_s {busy:.4f} "
-          f"idle_share {report['device_idle_share']}", flush=True)
-    print(f"  spmv by layer: {json.dumps(by_layer)}", flush=True)
-    for row in report["by_kernel"][:8]:
-        print(f"  {row['device_s']:.5f} s  x{row['count']}  {row['name']}",
-              flush=True)
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            rt.serve_requests(engine, wave, CAPACITY,
+                              chunk_frames=CHUNK_FRAMES)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        # device events only: the CUDA runtime's host-side calls
+        # (cudaLaunchKernel, cudaMemcpyAsync, ...) appear too, with no
+        # device time of their own
+        kernels = sorted(((e.key, self_device_us(e) / 1e6, e.count)
+                          for e in prof.key_averages()
+                          if self_device_us(e) > 0), key=lambda r: -r[1])
+        busy = sum(t for _, t, _ in kernels)
+        launches = sum(n for _, _, n in kernels)
+        glue = sum(n for k, _, n in kernels
+                   if any(name in k for name in GLUE_EVENT_NAMES))
+        layer_frames = steps[0] * len(engine.layers)
+        entry = {"route": route + ("+int8" if quant else ""),
+                 "frames": CAPACITY * CPU_CHECK_FRAMES,
+                 "frame_steps": steps[0], "layer_frames": layer_frames,
+                 "device_launches": launches, "glue_launches": glue,
+                 "launches_per_layer_frame": launches / layer_frames,
+                 "glue_launches_per_layer_frame": glue / layer_frames,
+                 "wall_s": wall, "device_busy_s": busy,
+                 "device_idle_share": 1.0 - busy / wall if wall else None,
+                 "by_kernel": [{"name": k[:90], "device_s": t, "count": n}
+                               for k, t, n in kernels[:15]]}
+        if route == "scatter" and not quant:
+            spmv = sorted((e for e in prof.events()
+                           if "stsp_spmv_kernel" in e.name),
+                          key=lambda e: e.time_range.start)
+            entry["spmv_by_layer"] = []
+            for layer in (0, 1):
+                evts = spmv[layer::2]
+                total = sum(e.time_range.elapsed_us() for e in evts) / 1e6
+                entry["spmv_by_layer"].append({
+                    "layer": layer + 1, "launches": len(evts),
+                    "device_s": total,
+                    "mean_ms": total / len(evts) * 1e3 if evts else None})
+        report.append(entry)
+        print(f"profile {entry['route']}: wall_s {wall:.4f} device_busy_s "
+              f"{busy:.4f} idle_share {entry['device_idle_share']} "
+              f"launches/layer-frame {entry['launches_per_layer_frame']:.2f}"
+              f" (glue {entry['glue_launches_per_layer_frame']:.2f}) over "
+              f"{layer_frames} layer-frames", flush=True)
+        if "spmv_by_layer" in entry:
+            print(f"  spmv by layer: {json.dumps(entry['spmv_by_layer'])}",
+                  flush=True)
+        for row in entry["by_kernel"][:8]:
+            print(f"  {row['device_s']:.5f} s  x{row['count']}  "
+                  f"{row['name']}", flush=True)
+    if out_dir is not None:
+        (out_dir / "chip_smoke_profile.json").write_text(
+            json.dumps(report, indent=1))
+    return report
 
 
 def main() -> int:
@@ -596,7 +736,9 @@ def main() -> int:
                   f"{case['plain_ms']:.5f} bytes {case['bytes']} "
                   f"bound_ms {case['bound_ms']:.6f} "
                   f"library_ms {case.get('library_ms')} library_device_ms "
-                  f"{case.get('library_device_ms')}", flush=True)
+                  f"{case.get('library_device_ms')} glue_ms "
+                  f"{case.get('glue_ms')} glue_device_ms "
+                  f"{case.get('glue_device_ms')}", flush=True)
 
     # phase 3: serving at full width
     launches, requests = serving_runs(torch, params, am_cfg,

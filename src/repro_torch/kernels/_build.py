@@ -33,12 +33,13 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _SPMV_ARGS = [_I, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P]
 SIGNATURES = {
-    # device, x, x_hat, delta, x_hat_out, nnz, B, F, theta, quantize,
-    # scale, qmin, qmax, stream
-    "spartus_delta_encode": [_I, _P, _P, _P, _P, _P, _I, _I, _F, _I, _F,
-                             _F, _F, _P],
-    # device, dm, c, h, c_out, B, H, stream
-    "spartus_lstm_pointwise": [_I, _P, _P, _P, _P, _I, _I, _P],
+    # device, x, h, s_hat, active, delta, s_hat_out, nnz, B, D, H, theta,
+    # quantize, scale, qmin, qmax, stream
+    "spartus_delta_encode_step": [_I, _P, _P, _P, _P, _P, _P, _P, _I, _I,
+                                  _I, _F, _I, _F, _F, _F, _P],
+    # device, dm, y, c, active, h_out, dm_out, c_out, h_state, B, H, stream
+    "spartus_lstm_pointwise_step": [_I, _P, _P, _P, _P, _P, _P, _P, _P, _I,
+                                    _I, _P],
     # device, val, lidx, idx, ds, y, B, K, Q, M, BLEN, S, stream
     "spartus_stsp_spmv_f32_i32": _SPMV_ARGS,
     "spartus_stsp_spmv_f32_i8": _SPMV_ARGS,
@@ -112,20 +113,35 @@ def _function(symbol: str):
 
 
 def check_cuda(name: str, dtypes: Dict[str, torch.dtype],
-               **tensors: torch.Tensor) -> torch.device:
-    """Raise unless every tensor is a contiguous CUDA tensor of its
-    expected dtype on one device; returns that device."""
-    devices = {t.device for t in tensors.values()}
-    if len(devices) != 1 or next(iter(devices)).type != "cuda":
-        raise ValueError(f"{name}: tensors must share one CUDA device, got "
-                         f"{sorted(str(d) for d in devices)}")
+               **tensors: Optional[torch.Tensor]) -> torch.device:
+    """Raise unless every tensor given (None stands for an absent optional
+    argument) is a contiguous CUDA tensor of its expected dtype, all on
+    one device; returns that device.  Runs once per launch, so it builds
+    nothing per tensor."""
+    first = None
+    index = -1
     for arg, t in tensors.items():
-        if arg in dtypes and t.dtype != dtypes[arg]:
-            raise TypeError(f"{name}: {arg} must be {dtypes[arg]}, "
-                            f"got {t.dtype}")
+        if t is None:
+            continue
+        if first is None:
+            first, index = t, t.get_device()
+        if index < 0 or not t.is_cuda or t.get_device() != index:
+            devices = {str(v.device) for v in tensors.values()
+                       if v is not None}
+            raise ValueError(f"{name}: tensors must share one CUDA device, "
+                             f"got {sorted(devices)}")
+        want = dtypes.get(arg)
+        if want is not None and t.dtype != want:
+            raise TypeError(f"{name}: {arg} must be {want}, got {t.dtype}")
         if not t.is_contiguous():
             raise ValueError(f"{name}: {arg} must be contiguous")
-    return next(iter(devices))
+    return first.device
+
+
+# PyTorch's current stream on a device as a raw handle, without building
+# a torch.cuda.Stream per launch (CPU-only builds lack the binding; they
+# never launch)
+_raw_stream = getattr(torch._C, "_cuda_getCurrentRawStream", None)
 
 
 class Kernel:
@@ -138,11 +154,14 @@ class Kernel:
         self.launches = 0
 
     def launch(self, symbol: str, device: torch.device, *args) -> None:
+        """Call C entry point ``symbol`` on ``device``'s current stream.
+        Tensors pass as their data pointers, None as a null pointer."""
         fn = _function(symbol)
-        stream = torch.cuda.current_stream(device).cuda_stream
-        c_args = [a.data_ptr() if isinstance(a, torch.Tensor) else a
-                  for a in args]
-        err = fn(device.index, *c_args, stream)
+        index = device.index
+        stream = (_raw_stream(index) if _raw_stream is not None
+                  else torch.cuda.current_stream(device).cuda_stream)
+        err = fn(index, *[a.data_ptr() if isinstance(a, torch.Tensor) else a
+                          for a in args], stream)
         if err != 0:
             msg = library().spartus_error_string(err).decode()
             raise RuntimeError(f"{self.name} ({symbol}): CUDA error {err}: "

@@ -11,6 +11,11 @@
 // round-to-nearest intrinsics (__fmul_rn / __fadd_rn) so nvcc cannot fuse
 // it into FMAs: each kernel then rounds where its plain PyTorch version
 // (src/repro_torch/kernels/ref.py) rounds.
+//
+// State that a kernel updates in place (x_hat, dm, c) is read and written
+// through pointers that may alias, so those pointers carry no
+// __restrict__: each element is read and then written by one thread, and
+// the compiler must keep that order.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -19,54 +24,50 @@
 
 namespace {
 
-constexpr int kEncodeThreads = 256;
-constexpr int kPointwiseThreads = 256;
-
 // ---------------------------------------------------------------------------
-// delta_encode
+// delta_encode: the IPU stage of one layer-step
 //
 // Replaces: src/repro/kernels/delta_encode.py:delta_encode_pallas
 //           (body _delta_encode_kernel), vmapped over slots by
-//           ops.delta_encode_batch.
-// Computes: eqs. (4)-(5) of the paper for every slot b of a [B, F] state:
-//           delta = where(|x - x_hat| > theta, x - x_hat, 0),
-//           x_hat' = where(fired, x, x_hat), nnz[b] = number fired.  With
-//           `quantize`, x is first snapped to the Qm.n grid
-//           (clip(rint(x / scale), qmin, qmax) * scale); theta arrives
-//           snapped by the wrapper.
+//           ops.delta_encode_batch, and the step glue around it in
+//           serving/batched_engine.py (the concatenation of the layer
+//           input with the previous hidden state, and the masked
+//           write-back of the reference state).
+// Computes: eqs. (4)-(5) of the paper for every slot b of the layer state
+//           s = [x | h] ([B, D] and [B, H], read through two pointers):
+//           delta = where(|s - s_hat| > theta, s - s_hat, 0),
+//           nnz[b] = number fired, for every row; and
+//           s_hat_out = where(fired, s, s_hat) for the rows whose
+//           active[b] is set (all rows when active is null).  A row left
+//           out is not written at all, so in place (s_hat_out == s_hat)
+//           its state comes back bit for bit, -0.0 and NaN payloads
+//           included.  With `quantize`, s is first snapped to the Qm.n
+//           grid (clip(rint(s / scale), qmin, qmax) * scale); theta
+//           arrives snapped by the wrapper.
 // Bound:    bytes.  Four fp32 streams of B*F (two read, two written) and
 //           one flop-free compare per element; at the serving shapes
-//           (B=16, F<=2048) the 0.5 MB it moves takes ~0.2 us at
-//           3.35 TB/s, so a launch is latency bound.
-// Design:   one block per slot row, threads striding over F with
-//           coalesced loads and stores, the fired count reduced in
-//           registers, then warp shuffles and one shared-memory pass:
-//           one launch for the whole pool, no atomics, no 1024-element
-//           padding contract (the TPU tile needed one; this loop masks
-//           the ragged tail itself).
+//           (B=16, F<=2048) the 0.5 MB it moves takes ~0.15 us at
+//           3.35 TB/s, so a launch is latency bound: what counts is how
+//           many of a call's loads are in flight at once.
+// Design:   one 1024-thread block per slot row, each thread holding E
+//           (compile-time) elements of the row, all 2E loads issued
+//           before the first compare or store: the 16 x 2048 elements of
+//           a pool call are in flight in one round trip rather than eight.
+//           The fired count is an exact integer sum: registers, warp
+//           shuffles, one shared-memory pass; no atomics, no zeroing
+//           launch.  Loads are 4-byte and coalesced, since layer 1's
+//           D=123 and F=1147 leave rows unaligned for wider ones.
+//           Measured on an H100 (tools/kernel_ab.py), B=16, F=2048:
+//           0.0023 ms against 0.0010 for an empty launch; 512 threads
+//           with E=4 read the same, and a cluster of up to 8 blocks per
+//           row, counts summed through distributed shared memory,
+//           0.0032: its two cluster barriers cost more than the wider
+//           spread gained.
 // ---------------------------------------------------------------------------
-__global__ void delta_encode_kernel(const float* __restrict__ x,
-                                    const float* __restrict__ x_hat,
-                                    float* __restrict__ delta,
-                                    float* __restrict__ x_hat_out,
-                                    int* __restrict__ nnz, int F,
-                                    float theta, int quantize, float scale,
-                                    float qmin, float qmax) {
-  const size_t row = static_cast<size_t>(blockIdx.x) * F;
-  int count = 0;
-  for (int i = threadIdx.x; i < F; i += blockDim.x) {
-    float v = x[row + i];
-    if (quantize) {
-      // scale is a power of two: the division and product are exact
-      v = __fmul_rn(fminf(fmaxf(rintf(v / scale), qmin), qmax), scale);
-    }
-    const float h = x_hat[row + i];
-    const float raw = __fsub_rn(v, h);
-    const bool fired = fabsf(raw) > theta;
-    delta[row + i] = fired ? raw : 0.0f;
-    x_hat_out[row + i] = fired ? v : h;
-    count += fired ? 1 : 0;
-  }
+constexpr int kEncodeMaxThreads = 1024;
+
+// count summed over the block; valid in thread 0
+__device__ __forceinline__ int block_sum(int count) {
   __shared__ int warp_counts[32];
   for (int off = 16; off > 0; off >>= 1) {
     count += __shfl_down_sync(0xffffffffu, count, off);
@@ -81,34 +82,94 @@ __global__ void delta_encode_kernel(const float* __restrict__ x,
     for (int off = 16; off > 0; off >>= 1) {
       count += __shfl_down_sync(0xffffffffu, count, off);
     }
-    if (lane == 0) nnz[blockIdx.x] = count;
   }
+  return count;
+}
+
+// E elements per thread; one block per row
+template <int E>
+__global__ void __launch_bounds__(kEncodeMaxThreads)
+    delta_encode_kernel(const float* __restrict__ x,
+                        const float* __restrict__ h, const float* s_hat,
+                        const unsigned char* __restrict__ active,
+                        float* __restrict__ delta, float* s_hat_out,
+                        int* __restrict__ nnz, int D, int H, float theta,
+                        int quantize, float scale, float qmin, float qmax) {
+  const int F = D + H;
+  const int b = blockIdx.x;
+  const float* x_b = x + static_cast<size_t>(b) * D;
+  const float* h_b = h + static_cast<size_t>(b) * H;  // unread when H = 0
+  const size_t row = static_cast<size_t>(b) * F;
+  const bool write = active == nullptr || active[b] != 0;
+  const int span = E * blockDim.x;
+  int count = 0;
+  for (int base = 0; base < F; base += span) {
+    float s[E], ref[E];
+#pragma unroll
+    for (int e = 0; e < E; ++e) {
+      const int i = base + e * blockDim.x + threadIdx.x;
+      s[e] = i < D ? x_b[i] : i < F ? h_b[i - D] : 0.0f;
+      ref[e] = i < F ? s_hat[row + i] : 0.0f;
+    }
+#pragma unroll
+    for (int e = 0; e < E; ++e) {
+      const int i = base + e * blockDim.x + threadIdx.x;
+      if (i >= F) continue;
+      float v = s[e];
+      if (quantize) {
+        // scale is a power of two: the division and product are exact
+        v = __fmul_rn(fminf(fmaxf(rintf(v / scale), qmin), qmax), scale);
+      }
+      const float raw = __fsub_rn(v, ref[e]);
+      const bool fired = fabsf(raw) > theta;
+      delta[row + i] = fired ? raw : 0.0f;
+      if (write) s_hat_out[row + i] = fired ? v : ref[e];
+      count += fired ? 1 : 0;
+    }
+  }
+  count = block_sum(count);
+  if (threadIdx.x == 0) nnz[b] = count;
 }
 
 // ---------------------------------------------------------------------------
-// lstm_pointwise
+// lstm_pointwise: the accumulate + HPE stage of one layer-step
 //
 // Replaces: src/repro/kernels/lstm_pointwise.py:lstm_pointwise_pallas
 //           (body _lstm_pointwise_kernel), vmapped over slots by
-//           ops.lstm_pointwise_batch.
-// Computes: the HPE gate math on dm [B, 4, H] in (i, g, f, o) order:
-//           c' = sigmoid(f) * c + sigmoid(i) * tanh(g),
-//           h = sigmoid(o) * tanh(c').
-// Bound:    bytes.  Reads 5 and writes 2 fp32 values per (slot, unit):
-//           0.46 MB at B=16, H=1024, ~0.14 us at 3.35 TB/s; the few dozen
-//           flops per element are far below the compute rates, so a
-//           launch is latency bound.
-// Design:   one thread per (slot, unit), a grid-stride loop; each gate
-//           row is read with unit-stride (coalesced) loads, the five
-//           inputs stay in registers, and the cell state never makes a
-//           second trip to memory.  sigmoid and tanh run in double and
-//           round to float: the correctly rounded value (barring a
-//           near-tie), bit-identical to the plain version on the host and
-//           on the card, where float library versions differ by an ulp
-//           that the delta thresholds downstream would amplify.  The five
-//           double transcendentals per element stay far below the card's
-//           fp64 rate at these sizes.
+//           ops.lstm_pointwise_batch, and the step glue around it in
+//           serving/batched_engine.py (the delta-memory accumulate
+//           dm + y and the masked write-back of dm, c and h).
+// Computes: for every slot b and unit j, with y null meaning 0:
+//           dm' = dm + y (one float32 add per gate, gate order i, g, f,
+//           o over dm [B, 4, H]), c' = sigmoid(f) * c + sigmoid(i) *
+//           tanh(g), h = sigmoid(o) * tanh(c').  h goes to h_out for
+//           every row; dm' (if dm_out is given), c' and h (if h_state is
+//           given) are written for the rows whose active[b] is set (all
+//           when active is null), so in place a row left out comes back
+//           bit for bit.
+// Bound:    bytes.  In place, reads 9 and writes 7 fp32 values per (slot,
+//           unit): 1.05 MB at B=16, H=1024, ~0.31 us at 3.35 TB/s (0.46 MB
+//           without y and state); the few dozen flops and five float64
+//           transcendentals per element are ~0.1 us of the card's fp64
+//           rate, so a launch is latency bound: load round trip, then
+//           the float64 chains.
+// Design:   one thread per (slot, unit), in the widest blocks (<= 256
+//           threads) that still give every SM a block.  A thread issues
+//           all its loads before any arithmetic, and its four gate
+//           transcendentals are independent, so their float64 sequences
+//           interleave.  Measured on an H100 (tools/kernel_ab.py), B=16,
+//           H=1024: 0.0025 ms against 0.0010 for an empty launch, the
+//           same with 64 blocks of 256 threads, 0.0017 with float32
+//           transcendentals: the float64 chains' latency, not the fp64
+//           pipe or the SM count, sets the rest.  sigmoid and tanh run in
+//           double and round to float: the correctly rounded value
+//           (barring a near-tie), bit-identical to the plain version on
+//           the host and on the card, where float library versions
+//           differ by an ulp that the delta thresholds downstream would
+//           amplify.
 // ---------------------------------------------------------------------------
+constexpr int kPointwiseMaxThreads = 256;
+
 __device__ __forceinline__ float sigmoid_rn(float v) {
   return static_cast<float>(1.0 / (1.0 + exp(-static_cast<double>(v))));
 }
@@ -117,24 +178,46 @@ __device__ __forceinline__ float tanh_rn(float v) {
   return static_cast<float>(tanh(static_cast<double>(v)));
 }
 
-__global__ void lstm_pointwise_kernel(const float* __restrict__ dm,
-                                      const float* __restrict__ c,
-                                      float* __restrict__ h,
-                                      float* __restrict__ c_out, int B,
-                                      int H) {
+__global__ void __launch_bounds__(kPointwiseMaxThreads)
+    lstm_pointwise_kernel(const float* dm, const float* __restrict__ y,
+                          const float* c,
+                          const unsigned char* __restrict__ active,
+                          float* __restrict__ h_out, float* dm_out,
+                          float* c_out, float* __restrict__ h_state, int B,
+                          int H) {
   const size_t n = static_cast<size_t>(B) * H;
+  const size_t hs = static_cast<size_t>(H);
   for (size_t t = static_cast<size_t>(blockIdx.x) * blockDim.x + threadIdx.x;
        t < n; t += static_cast<size_t>(gridDim.x) * blockDim.x) {
-    const size_t b = t / H;
-    const size_t j = t - b * H;
-    const float* d = dm + b * 4 * H + j;
+    const size_t b = t / hs;
+    const size_t g = t + 3 * b * hs;  // gate i of (b, j) in [B, 4, H]
+    float d[4];
+#pragma unroll
+    for (int k = 0; k < 4; ++k) d[k] = dm[g + k * hs];
+    const float cv = c[t];
+    const bool write = active == nullptr || active[b] != 0;
+    if (y != nullptr) {
+      float a[4];
+#pragma unroll
+      for (int k = 0; k < 4; ++k) a[k] = y[g + k * hs];
+#pragma unroll
+      for (int k = 0; k < 4; ++k) d[k] = __fadd_rn(d[k], a[k]);
+    }
     const float gi = sigmoid_rn(d[0]);
-    const float gg = tanh_rn(d[H]);
-    const float gf = sigmoid_rn(d[2 * static_cast<size_t>(H)]);
-    const float go = sigmoid_rn(d[3 * static_cast<size_t>(H)]);
-    const float cn = __fadd_rn(__fmul_rn(gf, c[t]), __fmul_rn(gi, gg));
-    c_out[t] = cn;
-    h[t] = __fmul_rn(go, tanh_rn(cn));
+    const float gg = tanh_rn(d[1]);
+    const float gf = sigmoid_rn(d[2]);
+    const float go = sigmoid_rn(d[3]);
+    const float cn = __fadd_rn(__fmul_rn(gf, cv), __fmul_rn(gi, gg));
+    const float hv = __fmul_rn(go, tanh_rn(cn));
+    h_out[t] = hv;
+    if (write) {
+      if (dm_out != nullptr) {
+#pragma unroll
+        for (int k = 0; k < 4; ++k) dm_out[g + k * hs] = d[k];
+      }
+      c_out[t] = cn;
+      if (h_state != nullptr) h_state[t] = hv;
+    }
   }
 }
 
@@ -612,31 +695,69 @@ const char* spartus_error_string(int err) {
   return cudaGetErrorString(static_cast<cudaError_t>(err));
 }
 
-int spartus_delta_encode(int device, const float* x, const float* x_hat,
-                         float* delta, float* x_hat_out, int* nnz, int B,
-                         int F, float theta, int quantize, float scale,
-                         float qmin, float qmax, void* stream) {
+// s = [x | h]: x [B, D], h [B, H] (null when H = 0), s_hat [B, D+H] read,
+// s_hat_out written for the rows active selects (may alias s_hat),
+// delta [B, D+H] and nnz [B] written for every row; active [B] bools or
+// null for all rows.
+int spartus_delta_encode_step(int device, const float* x, const float* h,
+                              const float* s_hat,
+                              const unsigned char* active, float* delta,
+                              float* s_hat_out, int* nnz, int B, int D,
+                              int H, float theta, int quantize, float scale,
+                              float qmin, float qmax, void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return static_cast<int>(err);
+  const int F = D + H;
   if (B == 0) return 0;
-  delta_encode_kernel<<<B, kEncodeThreads, 0,
-                        static_cast<cudaStream_t>(stream)>>>(
-      x, x_hat, delta, x_hat_out, nnz, F, theta, quantize, scale, qmin, qmax);
+  if (B < 0 || D < 0 || H < 0) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  const int per_thread = F <= 1024 ? 1 : F <= 2048 ? 2 : 4;
+  const int threads = std::min(
+      kEncodeMaxThreads,
+      std::max(32, ((F + per_thread - 1) / per_thread + 31) / 32 * 32));
+  const auto st = static_cast<cudaStream_t>(stream);
+#define ENCODE_RUN(EE)                                                      \
+  delta_encode_kernel<EE><<<B, threads, 0, st>>>(                           \
+      x, h, s_hat, active, delta, s_hat_out, nnz, D, H, theta, quantize,    \
+      scale, qmin, qmax)
+  if (per_thread <= 1) {
+    ENCODE_RUN(1);
+  } else if (per_thread <= 2) {
+    ENCODE_RUN(2);
+  } else {
+    ENCODE_RUN(4);
+  }
+#undef ENCODE_RUN
   return static_cast<int>(cudaGetLastError());
 }
 
-int spartus_lstm_pointwise(int device, const float* dm, const float* c,
-                           float* h, float* c_out, int B, int H,
-                           void* stream) {
+// dm [B, 4, H] (gates i, g, f, o), y [B, 4H] or null, c [B, H]; h_out
+// [B, H] written for every row; dm_out (or null), c_out and h_state (or
+// null) written for the rows active selects (active [B] bools, or null
+// for all rows); dm_out may alias dm and c_out may alias c.
+int spartus_lstm_pointwise_step(int device, const float* dm, const float* y,
+                                const float* c, const unsigned char* active,
+                                float* h_out, float* dm_out, float* c_out,
+                                float* h_state, int B, int H, void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return static_cast<int>(err);
   const size_t n = static_cast<size_t>(B) * H;
   if (n == 0) return 0;
-  const size_t want = (n + kPointwiseThreads - 1) / kPointwiseThreads;
+  int n_sm = 0;
+  err = sm_count(device, &n_sm);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  // the widest block (<= 256 threads) that still gives every SM a block
+  int threads = kPointwiseMaxThreads;
+  while (threads > 32 &&
+         (n + threads - 1) / threads < static_cast<size_t>(n_sm)) {
+    threads /= 2;
+  }
+  const size_t want = (n + threads - 1) / threads;
   const int blocks = static_cast<int>(want < 65535 ? want : 65535);
-  lstm_pointwise_kernel<<<blocks, kPointwiseThreads, 0,
-                          static_cast<cudaStream_t>(stream)>>>(dm, c, h, c_out,
-                                                               B, H);
+  lstm_pointwise_kernel<<<blocks, threads, 0,
+                          static_cast<cudaStream_t>(stream)>>>(
+      dm, y, c, active, h_out, dm_out, c_out, h_state, B, H);
   return static_cast<int>(cudaGetLastError());
 }
 

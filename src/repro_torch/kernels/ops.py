@@ -42,6 +42,20 @@ def delta_encode_batch(x: torch.Tensor, x_hat: torch.Tensor, theta: float,
     return _de.delta_encode(x, x_hat, theta, act_bits, act_frac_bits)
 
 
+def delta_encode_step(x: torch.Tensor, h: torch.Tensor, s_hat: torch.Tensor,
+                      theta: float, *, active: Optional[torch.Tensor] = None,
+                      act_bits: Optional[int] = None,
+                      act_frac_bits: int = 8):
+    """The IPU stage of one pool layer-step in one launch: eqs. (4)-(5) on
+    s = [x | h] (x [B, D] layer input, h [B, H] previous hidden state)
+    against s_hat [B, D+H], which is updated in place for the slots
+    ``active [B]`` selects (all if None) -> (delta [B, D+H], nnz [B]
+    int32) for every slot.  The reference's concatenate, encode and
+    masked ``where`` in one call."""
+    return _de.delta_encode_step(x, h, s_hat, theta, active, act_bits,
+                                 act_frac_bits)
+
+
 def lstm_pointwise(dm: torch.Tensor, c: torch.Tensor):
     """HPE gate math for one session: dm [4, H], c [H] -> (h, c')."""
     h, c_new = _lp.lstm_pointwise(dm[None], c[None])
@@ -51,6 +65,19 @@ def lstm_pointwise(dm: torch.Tensor, c: torch.Tensor):
 def lstm_pointwise_batch(dm: torch.Tensor, c: torch.Tensor):
     """Pool HPE gate math: dm [B, 4, H], c [B, H] -> (h, c') [B, H]."""
     return _lp.lstm_pointwise(dm, c)
+
+
+def lstm_pointwise_step(dm: torch.Tensor, y: torch.Tensor, c: torch.Tensor,
+                        h: torch.Tensor, *,
+                        active: Optional[torch.Tensor] = None
+                        ) -> torch.Tensor:
+    """The accumulate + HPE stage of one pool layer-step in one launch:
+    dm' = dm + y (dm, y [B, 4H]) and the gate math on dm' and c [B, H];
+    dm', c' and h are written in place into dm, c and h for the slots
+    ``active [B]`` selects (all if None) -> h [B, H] for every slot (the
+    next layer's input).  The reference's add, HPE and masked ``where``s
+    in one call."""
+    return _lp.lstm_pointwise_step(dm, y, c, h, active)
 
 
 def select_active_columns(delta: torch.Tensor, capacity: int

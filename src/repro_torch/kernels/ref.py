@@ -43,6 +43,31 @@ def delta_encode_ref(
     return delta, new_x_hat, fired.sum(-1, dtype=torch.int32)
 
 
+def _masked_copy_(dst: torch.Tensor, src: torch.Tensor,
+                  active: Optional[torch.Tensor]) -> None:
+    """dst[b] = src[b] for the rows ``active [B]`` selects (all if None)."""
+    if active is None:
+        dst.copy_(src)
+    else:
+        dst.copy_(torch.where(active[:, None], src, dst))
+
+
+def delta_encode_step_ref(
+    x: torch.Tensor, h: torch.Tensor, s_hat: torch.Tensor, theta: float,
+    active: Optional[torch.Tensor] = None, act_bits: Optional[int] = None,
+    act_frac_bits: int = 8,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The IPU stage of one layer-step: ``delta_encode_ref`` on the layer
+    state s = [x | h] (x [B, D], h [B, H]) against s_hat [B, D+H], which
+    is updated IN PLACE for the rows ``active [B]`` selects (all if None).
+    Returns (delta [B, D+H], nnz [B] int32), both for every row."""
+    s = torch.cat([x, h], dim=-1)
+    delta, new_s_hat, nnz = delta_encode_ref(s, s_hat, theta, act_bits,
+                                             act_frac_bits)
+    _masked_copy_(s_hat, new_s_hat, active)
+    return delta, nnz
+
+
 def _via_f64(fn, x: torch.Tensor) -> torch.Tensor:
     return fn(x.to(torch.float64)).to(x.dtype)
 
@@ -61,6 +86,23 @@ def lstm_pointwise_ref(dm: torch.Tensor, c: torch.Tensor
     o = _via_f64(torch.sigmoid, dm[..., 3, :])
     c_new = f * c + i * g
     return o * _via_f64(torch.tanh, c_new), c_new
+
+
+def lstm_pointwise_step_ref(dm: torch.Tensor, y: torch.Tensor,
+                            c: torch.Tensor, h: torch.Tensor,
+                            active: Optional[torch.Tensor] = None
+                            ) -> torch.Tensor:
+    """The accumulate + HPE stage of one layer-step: dm' = dm + y (dm, y
+    [B, 4H]), then ``lstm_pointwise_ref`` on dm' and c [B, H].  dm', c'
+    and h are written IN PLACE into dm, c and h for the rows ``active
+    [B]`` selects (all if None).  Returns h [B, H] for every row."""
+    b, hidden = c.shape
+    dm_new = dm + y
+    h_new, c_new = lstm_pointwise_ref(dm_new.view(b, 4, hidden), c)
+    _masked_copy_(c, c_new, active)
+    _masked_copy_(h, h_new, active)
+    _masked_copy_(dm, dm_new, active)
+    return h_new
 
 
 def stsp_spmv_ref(val: torch.Tensor, lidx: torch.Tensor, idx: torch.Tensor,

@@ -5,11 +5,11 @@ The per-layer state of every session in a fixed-capacity pool is stored
 as stacked device tensors (`BatchedLayerState`, shapes ``[B, ...]``), and
 each step runs, for every layer,
 
-    IPU   delta_encode_batch            (one kernel launch for all slots)
+    IPU   delta_encode_step             (one kernel launch for all slots)
     CTRL  select_active_columns_batch   (scatter route; the dense-mirror
     MACs  stsp_spmv_batch                route fuses both into
                                          delta_spmv_dense_topk_batch)
-    HPE   lstm_pointwise_batch
+    HPE   lstm_pointwise_step           (one kernel launch for all slots)
 
 plus the FCL/logit head.  An ``active`` mask freezes idle slots and a
 ``reset`` mask re-initialises admitted slots.  Telemetry accumulates on
@@ -17,8 +17,11 @@ the device.
 
 `PoolState` is preallocated once and updated IN PLACE by every step:
 that stands in for the reference's buffer donation, so the slabs are
-reused tick over tick.  Every step entry point therefore mutates the
-state it is given and returns the same object.  No step syncs with the host, so a later change can capture a
+reused tick over tick.  The IPU and HPE kernels write the layer state
+themselves, only for active slots, in place of the reference's
+concatenate, accumulate and masked ``where`` glue.  Every step entry
+point therefore mutates the state it is given and returns the same
+object.  No step syncs with the host, so a later change can capture a
 chunk as a CUDA graph.
 
 `step_batch` takes host-staged frames; `step_frames` gathers each slot's
@@ -122,15 +125,14 @@ class BatchedSpartusEngine(PackedSpartusModel):
         """Advance active slots one frame in place -> logits [B, C]."""
         cfg = self.cfg
         quant = active_quant(cfg) is not None
-        n_slots = x.shape[0]
-        am = active[:, None]
         nnz_layers, dropped_layers = [], []
         h = x
         for layer, st in zip(self.layers, state.layers):
             wscale = layer.scale if quant else None
-            s = torch.cat([h, st.h], dim=-1)              # [B, D+H]
-            delta, s_hat, nnz = ops.delta_encode_batch(
-                s, st.s_hat, cfg.theta, **act_kwargs(cfg))
+            # IPU on [h | st.h], st.s_hat updated for active slots
+            delta, nnz = ops.delta_encode_step(
+                h, st.h, st.s_hat, cfg.theta, active=active,
+                **act_kwargs(cfg))
             if layer.w_dense_t is not None:
                 y, dropped = ops.delta_spmv_dense_topk_batch(
                     layer.w_dense_t, delta, layer.capacity, scale=wscale)
@@ -139,16 +141,11 @@ class BatchedSpartusEngine(PackedSpartusModel):
                     delta, layer.capacity)
                 y = ops.stsp_spmv_batch(layer.enc.val, layer.enc.lidx, idx,
                                         vals, s=layer.enc.s, scale=wscale)
-            dm = st.dm + y
-            h_new, c_new = ops.lstm_pointwise_batch(
-                dm.view(n_slots, 4, layer.hidden_dim), st.c)
-            st.s_hat.copy_(torch.where(am, s_hat, st.s_hat))
-            st.c.copy_(torch.where(am, c_new, st.c))
-            st.h.copy_(torch.where(am, h_new, st.h))
-            st.dm.copy_(torch.where(am, dm, st.dm))
+            # dm += y and the HPE; st.dm, st.c, st.h updated for active
+            # slots, h (every slot) is the next layer's input
+            h = ops.lstm_pointwise_step(st.dm, y, st.c, st.h, active=active)
             nnz_layers.append(nnz)
             dropped_layers.append(dropped)
-            h = h_new
         tele.accumulate_layers(state.telemetry, torch.stack(nnz_layers),
                                torch.stack(dropped_layers), active)
         state.cursor.copy_(new_cursor)
@@ -170,7 +167,7 @@ class BatchedSpartusEngine(PackedSpartusModel):
         inactive slots are garbage."""
         active, reset = self._masks(active, reset)
         self._apply_reset(state, reset, reset_cursor=False)
-        x = as_tensor(x, torch.float32, self.device)
+        x = as_tensor(x, torch.float32, self.device).contiguous()
         return state, self._step_core(state, x, active, state.cursor.clone())
 
     def step_frames(self, state: PoolState, frames: torch.Tensor, active,

@@ -2,10 +2,10 @@
 weights — port of ``repro/serving/engine.py``.
 
 Per step and per layer:
-  IPU   -> kernels.ops.delta_encode   (thresholded Δ, reference update)
+  IPU   -> kernels.ops.delta_encode_step (thresholded Δ, reference update)
   CTRL  -> kernels.ops.select_active_columns (fixed-capacity NZI list)
   MACs  -> kernels.ops.stsp_spmv      (CBCSC spatio-temporal SpMxSpV)
-  HPE   -> kernels.ops.lstm_pointwise (gates + cell update)
+  HPE   -> kernels.ops.lstm_pointwise_step (Δ-memory update, gates, cell)
 
 There is no ``use_pallas`` switch: the engine's device decides.  On
 ``cuda`` (the default) every stage above that was a Pallas kernel in the
@@ -235,9 +235,11 @@ def _step_layer(layer: PackedLayer, state: LayerState, x: torch.Tensor,
                 cfg: EngineConfig) -> Tuple[torch.Tensor, Dict[str, int]]:
     """One streaming step of one layer.  x: [D] -> h: [H]."""
     wscale = layer.scale if active_quant(cfg) is not None else None
-    s = torch.cat([x, state.h])
-    delta, s_hat, nnz = ops.delta_encode(s, state.s_hat, cfg.theta,
-                                         **act_kwargs(cfg))
+    # the pool's fused IPU and HPE stages at B=1, state updated in place
+    delta, nnz = ops.delta_encode_step(x.contiguous()[None], state.h[None],
+                                       state.s_hat[None], cfg.theta,
+                                       **act_kwargs(cfg))
+    delta = delta[0]
     if layer.w_dense_t is not None:
         # B=1 leg of the batched dense-mirror computation
         y, dropped = ops.delta_spmv_dense_topk_batch(
@@ -247,12 +249,10 @@ def _step_layer(layer: PackedLayer, state: LayerState, x: torch.Tensor,
         idx, vals, dropped = ops.select_active_columns(delta, layer.capacity)
         y = ops.stsp_spmv(layer.enc.val, layer.enc.lidx, idx, vals,
                           s=layer.enc.s, scale=wscale)
-    dm = state.dm + y
-    h_new, c_new = ops.lstm_pointwise(dm.reshape(4, layer.hidden_dim),
-                                      state.c)
-    state.s_hat, state.c, state.h, state.dm = s_hat, c_new, h_new, dm
-    stats = {"nnz": int(nnz), "dropped": int(dropped),
-             "n_cols": int(s.shape[0])}
+    h_new = ops.lstm_pointwise_step(state.dm[None], y[None], state.c[None],
+                                    state.h[None])[0]
+    stats = {"nnz": int(nnz[0]), "dropped": int(dropped),
+             "n_cols": int(delta.shape[0])}
     return h_new, stats
 
 

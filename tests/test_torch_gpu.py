@@ -1,7 +1,8 @@
 """The port's CUDA kernels on the card, against their plain PyTorch
-versions (1e-6 elementwise, exact fired counts, and the SpMV bit-identical
-to the host scatter, whose per-row sum order it keeps), and the pool on
-the card against the same pool on the host.
+versions (1e-6 elementwise, exact fired counts; the fused layer-step
+stages bit for bit, state written in place and inactive slots untouched;
+the SpMV bit-identical to the host scatter, whose per-row sum order it
+keeps), and the pool on the card against the same pool on the host.
 
 Every test needs an NVIDIA GPU and nvcc (the kernels build at first use)
 and skips elsewhere; whether a card exists is decided in a fixture, never
@@ -65,6 +66,101 @@ def test_lstm_pointwise_kernel_matches_plain(cuda, b, h):
     assert lp.KERNEL.launches == before + 1
     for a, w in zip(got, want):
         assert _max_err(a, w) <= 1e-6
+
+
+def _bits(t):
+    """Bit pattern, so NaN payloads and -0.0 compare exactly."""
+    return t.contiguous().view(torch.int32).cpu()
+
+
+def _poison(t):
+    """A -0.0 and a NaN with a payload in every row of a state tensor."""
+    t[:, 0] = -0.0
+    t[:, -1] = torch.tensor(0x7FC01234, dtype=torch.int32).view(
+        torch.float32)
+    return t
+
+
+def _on_card(t, cuda, offset):
+    """t on the card; with ``offset`` one element past a 16-byte aligned
+    base, so rows are unaligned whatever their length."""
+    if not offset:
+        return t.to(cuda)
+    store = torch.zeros(t.numel() + 1, dtype=t.dtype, device=cuda)
+    store[1:] = t.flatten().to(cuda)
+    return store[1:].view(t.shape)
+
+
+def _mask(b, mode):
+    if mode == "null":
+        return None
+    return torch.tensor([mode == "all" or i % 3 != 1 for i in range(b)])
+
+
+# (b, d, h, act_bits): the 2x1024 model's layers 1 and 2 at the pool's
+# and the batch-1 engine's B, D=0 (s = h alone), small odd widths
+ENCODE_CASES = [(16, 1024, 1024, None), (16, 123, 1024, None),
+                (16, 1024, 1024, 16), (1, 123, 1024, None),
+                (1, 1024, 1024, 16), (3, 0, 128, None), (3, 37, 64, 16),
+                (3, 123, 3000, None)]
+
+
+@pytest.mark.parametrize("b,d,h,act_bits", ENCODE_CASES)
+@pytest.mark.parametrize("mode", ["null", "all", "mixed"])
+def test_delta_encode_step_kernel_equals_plain(cuda, b, d, h, act_bits,
+                                               mode):
+    gen = _gen(b + d + h)
+    x = torch.randn((b, d), generator=gen)
+    hid = torch.randn((b, h), generator=gen)
+    s_hat = _poison(torch.cat([x, hid], -1)
+                    + 0.3 * torch.randn((b, d + h), generator=gen))
+    active = _mask(b, mode)
+    want_state = s_hat.clone()
+    want = de.plain_step(x, hid, want_state, 0.3, active, act_bits)
+    state = _on_card(s_hat, cuda, offset=d % 2 == 1)
+    before = de.KERNEL.launches
+    got = de.delta_encode_step(
+        _on_card(x, cuda, offset=d % 2 == 1), hid.to(cuda), state, 0.3,
+        None if active is None else active.to(cuda), act_bits)
+    assert de.KERNEL.launches == before + 1
+    assert torch.equal(got[0].cpu(), want[0])
+    assert torch.equal(got[1].cpu(), want[1])
+    assert torch.equal(_bits(state), _bits(want_state))
+
+
+# (b, h): the pool and batch-1 engine at the 2x1024 model's width, and
+# widths that leave partial blocks
+HPE_CASES = [(16, 1024), (1, 1024), (3, 700), (3, 128)]
+
+
+@pytest.mark.parametrize("b,h", HPE_CASES)
+@pytest.mark.parametrize("mode", ["null", "all", "mixed"])
+def test_lstm_pointwise_step_kernel_equals_plain(cuda, b, h, mode):
+    gen = _gen(b + h)
+    dm = torch.randn((b, 4 * h), generator=gen) * 4
+    y = torch.randn((b, 4 * h), generator=gen)
+    c = torch.randn((b, h), generator=gen) * 2
+    hid = torch.randn((b, h), generator=gen)
+    active = _mask(b, mode)
+    if active is not None:
+        # poisoned rows only where the kernel must not touch them: the
+        # card's arithmetic returns a canonical NaN where the host's keeps
+        # the payload
+        for t in (dm, c, hid):
+            t[~active] = _poison(t[~active])
+    want_state = [t.clone() for t in (dm, c, hid)]
+    want = lp.plain_step(*want_state[:1], y, *want_state[1:], active)
+    state = [t.to(cuda) for t in (dm, c, hid)]
+    before = lp.KERNEL.launches
+    got = lp.lstm_pointwise_step(state[0], y.to(cuda), state[1], state[2],
+                                 None if active is None else active.to(cuda))
+    assert lp.KERNEL.launches == before + 1
+    # h of a poisoned row is a NaN on both sides, its payload the card's
+    nan = want.isnan()
+    assert torch.equal(got.cpu().isnan(), nan)
+    assert torch.equal(_bits(got)[~nan], _bits(want)[~nan])
+    for g, w in zip(state, want_state):
+        assert torch.equal(_bits(g), _bits(w))
 
 
 def _cbcsc(seed, h, q, m, gamma):
@@ -169,6 +265,13 @@ def test_kernel_wrappers_reject_what_the_kernels_do_not_take(cuda):
                           torch.zeros((2, 8), device=cuda))
     with pytest.raises(ValueError, match="one CUDA device"):
         de.delta_encode(x, x.cpu(), 0.1)
+    with pytest.raises(TypeError, match="active"):
+        de.delta_encode_step(x, x, torch.zeros((2, 16), device=cuda), 0.1,
+                             torch.ones(2, device=cuda))
+    with pytest.raises(ValueError, match="s_hat"):
+        de.delta_encode_step(x, x, x, 0.1)
+    with pytest.raises(ValueError, match="dm, y"):
+        lp.lstm_pointwise_step(x, x, x, x)
     val = torch.zeros((4, 2, 2), device=cuda, dtype=torch.float16)
     lidx = torch.zeros((4, 2, 2), device=cuda, dtype=torch.int32)
     idx = torch.zeros((1, 3), device=cuda, dtype=torch.int32)
