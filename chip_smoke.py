@@ -2,9 +2,15 @@
 """Drive the PyTorch/CUDA port (``src/repro_torch``) on one NVIDIA GPU.
 
     python3 chip_smoke.py [--seed N] [--out DIR]
+    python3 chip_smoke.py --boundary-only [--src DIR] [--label NAME]
 
 Details (nvcc log, serving report, mirror cost, profile) go to DIR, by
-default ``build/chip_smoke/``.
+default ``build/chip_smoke/``.  ``--boundary-only`` prints just the
+chunked pool's boundary costs of the tree whose ``src`` is DIR (the
+retirement fetch's wait, the dispatch's host time, the chunk's device
+span, ``host_overlap_frac``; see ``boundary_only``): to compare two
+commits, unpack the parent with ``git archive`` and run both trees in
+turns in one call.
 
 Phases; any failure exits non-zero before a result line is printed:
 
@@ -36,7 +42,31 @@ Phases; any failure exits non-zero before a result line is printed:
    dense-mirror GEMM against a plain fp32 ``torch.matmul`` (``mirror_cost``)
    and a profile of one wave per route (device launches per layer-frame,
    busy time, idle share).
-4. Prints ``{"kernels": [...]}`` and then, as the last line,
+4. Streaming front-end at full width: ``AsyncSpartusServer`` over the
+   same model (theta=0.3) on the dense-mirror and scatter routes,
+   capacity 16, chunk_frames=16, ticks offloaded to a worker thread,
+   ``PoolObservability`` on.  32 clients arrive staggered and drip-feed
+   seeded 100-300-frame utterances in blocks of 1-32 frames with seeded
+   gaps; two cancel mid-utterance; one is a slow consumer (partial
+   queues bound at 2) that drains two blocks halfway and the rest at the
+   end.  Checks, per route: each completed client's partials equal its
+   result bit for bit, the results are ``serve_requests``' on the card
+   within 1e-5, cancelled clients get no result and the pool ends empty,
+   the slow consumer's backfill covers its gap, every client's logits
+   change over time, every kernel of the route launched on this path
+   (counted as path ``stream``), and one injected ``dispatch`` fault with
+   the watchdog on recovers once, with every survivor equal to the
+   undisturbed run bit for bit.  The timed run is made with torch's
+   sync debug mode at "error": a blocking copy or synchronize anywhere
+   on the served path fails it.  The admin endpoint's healthz, stats,
+   metrics and timeseries are scraped mid-run, and the launcher runs as
+   a subprocess (``python -m repro_torch.launch.serve --spartus --async
+   --pool 16 --chunk-frames 16 --clients 8 --hidden 1024``).  Prints
+   frames/s, latency p50/p99, first-logit p50, queue-wait p95,
+   dispatches per frame, ``host_overlap_frac`` and ``tick()`` wall time,
+   split into the dispatch's host time, the fetch's wait and the
+   observability fold, beside each chunk's device span.
+5. Prints ``{"kernels": [...]}`` and then, as the last line,
    ``{"ok": true, "device": {...}}``.
 
 It imports nothing of JAX and nothing of the JAX package ``repro``.
@@ -44,7 +74,9 @@ It imports nothing of JAX and nothing of the JAX package ``repro``.
 from __future__ import annotations
 
 import argparse
+import asyncio
 import json
+import os
 import subprocess
 import sys
 import time
@@ -63,6 +95,10 @@ CAPACITY, N_REQUESTS, CHUNK_FRAMES = 16, 32, 16
 MIN_FRAMES, MAX_FRAMES = 100, 300
 CPU_CHECK_REQUESTS, CPU_CHECK_FRAMES = 4, 64
 GAMMA, M = 0.9375, 64
+N_STREAM_CLIENTS, MAX_BLOCK, PARTIAL_QUEUE_LEN = 32, 32, 2
+CANCELLED_CLIENTS, SLOW_CLIENT = (5, 17), 9
+STREAM_ROUTES = ("auto", "scatter")
+LAUNCHER_TIMEOUT_S = 300
 
 
 class SmokeFailure(RuntimeError):
@@ -684,12 +720,442 @@ def profile_serving(torch, params, am_cfg, requests, out_dir: Path):
     return report
 
 
+# -- phase 4: the streaming front-end at full width --------------------------
+
+
+def make_stream_clients(am_cfg, rng):
+    """N_STREAM_CLIENTS seeded utterances of MIN_FRAMES..MAX_FRAMES
+    frames, each cut into blocks of 1..MAX_BLOCK frames sent with seeded
+    gaps after a staggered start; two clients cancel halfway, one is the
+    slow consumer."""
+    clients = []
+    for i in range(N_STREAM_CLIENTS):
+        t = int(rng.integers(MIN_FRAMES, MAX_FRAMES + 1))
+        feats = rng.standard_normal((t, am_cfg.input_dim)).astype(np.float32)
+        cuts = [0]
+        while cuts[-1] < t:
+            cuts.append(min(t, cuts[-1] + int(rng.integers(1, MAX_BLOCK + 1))))
+        blocks = list(zip(cuts[:-1], cuts[1:]))
+        clients.append({
+            "id": i, "feats": feats, "blocks": blocks,
+            "gaps": rng.uniform(0.0, 0.004, len(blocks)).tolist(),
+            "start": float(rng.uniform(0.0, 0.25)),
+            "cancel_at": (len(blocks) // 2 if i in CANCELLED_CLIENTS
+                          else None),
+            "slow": i == SLOW_CLIENT,
+        })
+    return clients
+
+
+async def stream_client(srv, c):
+    """One client: feeds its blocks, consumes partials as they come (the
+    slow consumer takes two blocks halfway and the rest at the end) and
+    returns its partials and result, or ``cancelled``."""
+    await asyncio.sleep(c["start"])
+    h = await srv.stream(want_partials=True)
+    parts = []
+
+    async def consume():
+        async for p in h:
+            parts.append(p)
+
+    consumer = None if c["slow"] else asyncio.create_task(consume())
+    for b, (lo, hi) in enumerate(c["blocks"]):
+        if b == c["cancel_at"]:
+            h.cancel()
+            try:
+                await h.result()
+            except asyncio.CancelledError:
+                pass
+            else:
+                raise SmokeFailure(f"client {c['id']}: result after cancel")
+            if consumer is not None:
+                await consumer
+            return {"cancelled": True, "parts": parts}
+        await h.send(c["feats"][lo:hi])
+        if c["slow"] and b == len(c["blocks"]) // 2:
+            for _ in range(2):
+                parts.append(await asyncio.wait_for(h.__anext__(), 120))
+        await asyncio.sleep(c["gaps"][b])
+    h.close()
+    result = await h.result()
+    if consumer is not None:
+        await consumer
+    else:
+        parts += [p async for p in h]
+    return {"cancelled": False, "parts": parts, "result": result}
+
+
+def instrument(torch, pool, engine, call: str = "tick"):
+    """Time each dispatching ``pool.<call>`` (``tick``, or ``step_chunk``
+    for a tree without ``tick``) without adding a sync: its host wall
+    time; inside it, the engine's ``step_chunk`` (the host time of the
+    launches, and CUDA events around them: the chunk's device span), the
+    pool's ``_resolve`` (the wait on the previous chunk's staged copies)
+    and its ``_fold_boundary`` where it has one (the observability fold).
+    ``read()`` after the run returns the per-call samples."""
+    timing = {"wall_ms": [], "dispatch_ms": [], "resolve_ms": [],
+              "fold_ms": [], "events": []}
+    cur = {}
+    outer = getattr(pool, call)
+
+    def timed(name, fn):
+        def wrapped(*args, **kwargs):
+            t0 = time.perf_counter()
+            out = fn(*args, **kwargs)
+            cur[name] = cur.get(name, 0.0) + (time.perf_counter() - t0) * 1e3
+            return out
+        return wrapped
+
+    def timed_call(*args, **kwargs):
+        cur.clear()
+        t0 = time.perf_counter()
+        out = outer(*args, **kwargs)
+        if "events" in cur:                  # it dispatched a chunk
+            timing["wall_ms"].append((time.perf_counter() - t0) * 1e3)
+            for name in ("dispatch_ms", "resolve_ms", "fold_ms"):
+                if name in cur:
+                    timing[name].append(cur[name])
+            timing["events"].append(cur["events"])
+        return out
+
+    step_chunk = engine.step_chunk
+
+    def timed_chunk(*args, **kwargs):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        t0 = time.perf_counter()
+        out = step_chunk(*args, **kwargs)
+        cur["dispatch_ms"] = (time.perf_counter() - t0) * 1e3
+        end.record()
+        cur["events"] = (start, end)
+        return out
+
+    setattr(pool, call, timed_call)
+    pool._resolve = timed("resolve_ms", pool._resolve)
+    if hasattr(pool, "_fold_boundary"):
+        pool._fold_boundary = timed("fold_ms", pool._fold_boundary)
+    engine.step_chunk = timed_chunk
+
+    def read():
+        del engine.step_chunk
+        torch.cuda.synchronize()
+        out = {k: v for k, v in timing.items() if k != "events"}
+        out["chunk_device_span_ms"] = [a.elapsed_time(b)
+                                       for a, b in timing["events"]]
+        return out
+
+    return read
+
+
+def summary(values):
+    arr = np.asarray(values, np.float64)
+    if not arr.size:
+        return None
+    return {"n": int(arr.size), "mean": float(arr.mean()),
+            "p50": float(np.percentile(arr, 50)),
+            "p95": float(np.percentile(arr, 95)),
+            "max": float(arr.max())}
+
+
+async def admin_scrape(start_admin_server, srv, obs):
+    """Query the admin endpoint's four commands while clients stream."""
+    admin = await start_admin_server(srv, obs, port=0)
+    port = admin.sockets[0].getsockname()[1]
+    reader, writer = await asyncio.open_connection("127.0.0.1", port)
+    replies = {}
+    for cmd in ({"cmd": "healthz"}, {"cmd": "stats"}, {"cmd": "metrics"},
+                {"cmd": "timeseries", "last": 8}):
+        writer.write((json.dumps(cmd) + "\n").encode())
+        await writer.drain()
+        replies[cmd["cmd"]] = json.loads(await reader.readline())
+    writer.close()
+    admin.close()
+    await admin.wait_closed()
+    return replies
+
+
+def serve_streams(torch, engine, clients, *, faults=None, scrape=False,
+                  timed=False):
+    """One run of every client through an AsyncSpartusServer.  A timed
+    run is also the sync check: it runs with ``torch.cuda``'s sync debug
+    mode set to "error", so any blocking copy or synchronize on the
+    served path, in the tick worker or on the event loop, fails it (the
+    tick's waits on the previous chunk's copy events are event waits,
+    which that mode allows)."""
+    from repro_torch.launch.serve import start_admin_server
+    from repro_torch.serving import AsyncSpartusServer, PoolObservability
+
+    obs = PoolObservability()
+    srv = AsyncSpartusServer(
+        engine, CAPACITY, chunk_frames=CHUNK_FRAMES, max_frames=MAX_FRAMES,
+        partial_queue_len=PARTIAL_QUEUE_LEN, offload_ticks=True,
+        observability=obs, watchdog=faults is not None, faults=faults)
+    read = instrument(torch, srv.pool, engine) if timed else None
+
+    async def run():
+        async with srv:
+            tasks = [asyncio.ensure_future(stream_client(srv, c))
+                     for c in clients]
+            admin = None
+            if scrape:
+                await asyncio.sleep(0.4)
+                admin = await admin_scrape(start_admin_server, srv, obs)
+            outs = await asyncio.gather(*tasks)
+            return outs, admin
+
+    t0 = time.perf_counter()
+    if timed:
+        torch.cuda.set_sync_debug_mode("error")
+    try:
+        outs, admin = asyncio.run(run())
+    except RuntimeError as exc:
+        if timed and "synchroniz" in str(exc):
+            raise SmokeFailure(f"a device sync on the served path: {exc}")
+        raise
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    return {"outs": outs, "admin": admin, "wall": wall, "srv": srv,
+            "obs": obs, "timing": read() if read else None}
+
+
+def streaming_runs(torch, params, am_cfg, rng, out_dir: Path):
+    """Phase 4 on both routes; returns the stream path's launch counts
+    per kernel (summed over the routes) and the report."""
+    from repro_torch import serving as rt
+    from repro_torch.kernels import delta_encode as de
+    from repro_torch.kernels import lstm_pointwise as lp
+    from repro_torch.kernels import stsp_spmv as sp
+
+    counters = {"delta_encode": de.KERNEL, "lstm_pointwise": lp.KERNEL,
+                "stsp_spmv_scatter_batch": sp.SCATTER_BATCH_KERNEL,
+                "stsp_spmv": sp.KERNEL}
+    clients = make_stream_clients(am_cfg, rng)
+    warm = [dict(c, feats=c["feats"][:2 * CHUNK_FRAMES], start=0.0,
+                 blocks=[(0, 2 * CHUNK_FRAMES)], gaps=[0.0], cancel_at=None,
+                 slow=False) for c in clients[:CAPACITY]]
+    launches = {name: 0 for name in counters}
+    report = []
+    for route in STREAM_ROUTES:
+        engine = rt.BatchedSpartusEngine(params, am_cfg, rt.EngineConfig(
+            theta=am_cfg.theta, gamma=GAMMA, m=M, spmv_path=route))
+        dense = [l.w_dense_t is not None for l in engine.layers]
+        serve_streams(torch, engine, warm)            # untimed warm-up
+        for kern in counters.values():
+            kern.launches = 0
+        run = serve_streams(torch, engine, clients, scrape=True, timed=True)
+        torch.cuda.synchronize()
+        counts = {name: kern.launches for name, kern in counters.items()}
+        for name, n in counts.items():
+            launches[name] += n
+        srv, outs = run["srv"], run["outs"]
+        need = ["delta_encode", "lstm_pointwise"]
+        if not all(dense):
+            need.append("stsp_spmv_scatter_batch")
+        for name in need:
+            check(counts[name] > 0,
+                  f"stream {route}: {name} never launched on the stream path")
+        check(counts["stsp_spmv"] == 0,
+              f"stream {route}: the batch-1 SpMV launched on the stream path")
+        check(srv.pool.n_active == 0 and srv.n_connected == 0,
+              f"stream {route}: the pool did not end empty")
+        done_ids = {r.req_id for r in srv._completed}
+        completed = {}
+        for c, out in zip(clients, outs):
+            if c["cancel_at"] is not None:
+                check(out["cancelled"], f"stream {route}: client {c['id']} "
+                                        f"was not cancelled")
+                continue
+            res = out["result"]
+            check(res.req_id in done_ids and res.logits.shape == (
+                c["feats"].shape[0], am_cfg.n_classes)
+                and np.isfinite(res.logits).all(),
+                f"stream {route}: client {c['id']} result malformed")
+            streamed = np.concatenate([p.rows for p in out["parts"]])
+            check(np.array_equal(streamed, res.logits),
+                  f"stream {route}: client {c['id']} partials differ from "
+                  f"its result")
+            check(np.abs(np.diff(res.logits, axis=0)).max() > 0,
+                  f"stream {route}: client {c['id']} logits never change")
+            completed[c["id"]] = (res, out["parts"])
+        check(len(done_ids) == N_STREAM_CLIENTS - len(CANCELLED_CLIENTS),
+              f"stream {route}: {len(done_ids)} results, cancelled clients "
+              f"must get none")
+        slow_parts = completed[SLOW_CLIENT][1]
+        widest = max(p.rows.shape[0] for p in slow_parts)
+        check(widest > CHUNK_FRAMES,
+              f"stream {route}: the slow consumer was never backfilled "
+              f"(widest block {widest})")
+        ids = sorted(completed)
+        sync, _ = rt.serve_requests(engine, [
+            rt.StreamRequest(i, 0, clients[i]["feats"]) for i in ids],
+            CAPACITY, chunk_frames=CHUNK_FRAMES)
+        err_sync = max(float(np.abs(completed[i][0].logits - r.logits).max())
+                       for i, r in zip(ids, sync))
+        check(err_sync <= TOL_POOL_VS_BATCH1,
+              f"stream {route}: async vs serve_requests max err {err_sync}")
+        admin = run["admin"]
+        check(admin["healthz"].get("ok") is True
+              and admin["healthz"]["capacity"] == CAPACITY
+              and "n_dispatches" in admin["stats"]["stats"]
+              and admin["metrics"]["metrics"]["spartus_dispatches_total"][
+                  "value"] > 0
+              and "# TYPE spartus_frames_total counter"
+              in admin["metrics"]["prometheus"]
+              and len(admin["timeseries"]["timeseries"]) > 0,
+              f"stream {route}: admin endpoint replies malformed: "
+              f"{json.dumps(admin)[:400]}")
+        # one injected dispatch fault, the watchdog on: every survivor
+        # equals the undisturbed run bit for bit
+        from repro_torch.serving import FaultEvent, FaultInjector, FaultPlan
+
+        inj = FaultInjector(FaultPlan(events=(FaultEvent("dispatch", 5),)))
+        fault = serve_streams(torch, engine, clients, faults=inj)
+        check(fault["srv"].n_recoveries == 1 and len(inj.fired) == 1,
+              f"stream {route}: {fault['srv'].n_recoveries} recoveries")
+        survivors = 0
+        for c, out in zip(clients, fault["outs"]):
+            if c["id"] in completed:
+                check(not out["cancelled"] and np.array_equal(
+                    out["result"].logits, completed[c["id"]][0].logits),
+                    f"stream {route}: survivor {c['id']} differs from the "
+                    f"undisturbed run")
+                survivors += 1
+        stats = srv.stats()
+        timing = run["timing"]
+        frames = int(sum(completed[i][0].logits.shape[0] for i in ids))
+        entry = {
+            "route": route, "dense_mirror_layers": dense,
+            "clients": N_STREAM_CLIENTS, "completed": len(ids),
+            "frames": frames, "wall_s": run["wall"],
+            "frames_per_s": frames / run["wall"],
+            "p50_latency_s": stats.p50_latency_s,
+            "p99_latency_s": stats.p99_latency_s,
+            "p50_ttfl_s": stats.p50_ttfl_s,
+            "p95_queue_wait_s": stats.p95_queue_wait_s,
+            "n_dispatches": stats.n_dispatches,
+            "dispatches_per_frame": stats.dispatches_per_frame,
+            "host_overlap_frac": stats.host_overlap_frac,
+            "sync_check": "no blocking sync under sync debug mode 'error'",
+            "tick_wall_ms": summary(timing["wall_ms"]),
+            "dispatch_host_ms": summary(timing["dispatch_ms"]),
+            "resolve_ms": summary(timing["resolve_ms"]),
+            "fold_ms": summary(timing["fold_ms"]),
+            "chunk_device_span_ms": summary(timing["chunk_device_span_ms"]),
+            "async_vs_serve_requests_max_err": err_sync,
+            "slow_consumer_widest_block": widest,
+            "watchdog_recoveries": fault["srv"].n_recoveries,
+            "watchdog_survivors_equal": survivors,
+            "launches": counts,
+        }
+        print(f"stream {route}: {json.dumps(entry)}", flush=True)
+        report.append(entry)
+    (out_dir / "chip_smoke_stream.json").write_text(
+        json.dumps(report, indent=1))
+    return launches, report
+
+
+def boundary_costs(torch, rt, engine, requests, observability=None):
+    """Serve ``requests`` (all arriving at once) through one chunked pool
+    with ``serve_requests``' loop, ``step_chunk`` instrumented; returns
+    the per-call timing summaries and the pool's ``host_overlap_frac``.
+    A fetch that waits for the chunk just dispatched shows as a resolve
+    time near that chunk's device span."""
+    kwargs = {} if observability is None else {"observability": observability}
+    pool = rt.SessionPool(engine, CAPACITY,
+                          max_frames=max(r.n_frames for r in requests),
+                          chunk_frames=CHUNK_FRAMES, **kwargs)
+    read = instrument(torch, pool, engine, call="step_chunk")
+    pending = list(requests)
+    results, now = [], 0
+    t_run = time.perf_counter()
+    while pending or pool.n_active or pool.has_pending:
+        while pending and pool.n_free:
+            pool.admit(pending.pop(0), now)
+        adv = pool.max_chunk_advance()
+        results += pool.step_chunk(now) if adv else pool.flush()
+        now += max(adv, 1)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t_run
+    t = read()
+    frames = sum(r.logits.shape[0] for r in results)
+    return {"step_chunk_wall_ms": summary(t["wall_ms"]),
+            "dispatch_host_ms": summary(t["dispatch_ms"]),
+            "resolve_ms": summary(t["resolve_ms"]),
+            "fold_ms": summary(t["fold_ms"]),
+            "chunk_device_span_ms": summary(t["chunk_device_span_ms"]),
+            "host_overlap_frac": pool.mean_host_overlap_frac(),
+            "frames": frames, "wall_s": wall, "frames_per_s": frames / wall}
+
+
+def boundary_only(torch, args) -> int:
+    """``--boundary-only``: one tree's chunked-pool boundary costs, for
+    comparing two trees in one call (parent, change, change, parent).
+    The tree is the one whose ``src`` was put on the path (``--src``):
+    the paper's 2x1024 DeltaLSTM on the scatter route, phase 3's 32
+    requests at capacity 16 and chunk_frames=16, after one untimed wave;
+    with observability too where the tree has it.  Prints one JSON
+    line."""
+    from repro_torch import serving as rt
+    from repro_torch.configs.spartus_lstm import DELTA_LSTM_2L_1024H
+    from repro_torch.models import lstm_am
+
+    am_cfg = DELTA_LSTM_2L_1024H
+    params = servable_params(lstm_am, am_cfg, args.seed)
+    engine = rt.BatchedSpartusEngine(params, am_cfg, rt.EngineConfig(
+        theta=am_cfg.theta, gamma=GAMMA, m=M, spmv_path="scatter"))
+    requests = make_requests(rt, am_cfg, np.random.default_rng(args.seed))
+    boundary_costs(torch, rt, engine, requests[:CAPACITY])
+    result = {"label": args.label, "src": args.src, "device": nvidia_smi(),
+              "plain": boundary_costs(torch, rt, engine, requests)}
+    if hasattr(rt, "PoolObservability"):
+        result["observability"] = boundary_costs(
+            torch, rt, engine, requests, rt.PoolObservability())
+    print(json.dumps(result), flush=True)
+    return 0
+
+
+def launcher_run():
+    """The launcher as its users start it, as a subprocess with a time
+    limit; returns its last lines."""
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    cmd = [sys.executable, "-m", "repro_torch.launch.serve", "--spartus",
+           "--async", "--pool", "16", "--chunk-frames", "16", "--clients",
+           "8", "--hidden", "1024", "--admin-port", "0"]
+    try:
+        proc = subprocess.run(cmd, env=env, capture_output=True, text=True,
+                              timeout=LAUNCHER_TIMEOUT_S, cwd=ROOT)
+    except subprocess.TimeoutExpired:
+        raise SmokeFailure(f"launcher did not exit within "
+                           f"{LAUNCHER_TIMEOUT_S} s")
+    check(proc.returncode == 0 and "8 concurrent TCP clients served"
+          in proc.stdout,
+          f"launcher exit {proc.returncode}: {proc.stderr[-2000:]}")
+    lines = [l for l in proc.stdout.splitlines() if l.startswith("[serve]")]
+    for line in lines:
+        print(f"launcher: {line}", flush=True)
+    return lines
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--out", default=str(ROOT / "build" / "chip_smoke"),
                     help="directory for the build log, serving report and "
                          "profile")
+    ap.add_argument("--boundary-only", action="store_true",
+                    help="print only the chunked pool's boundary costs "
+                         "(see boundary_only) and exit")
+    ap.add_argument("--src", default=str(ROOT / "src"),
+                    help="with --boundary-only: the src directory of the "
+                         "tree to measure (another commit unpacked with "
+                         "git archive builds its kernels under its own "
+                         "build/)")
+    ap.add_argument("--label", default="this tree",
+                    help="with --boundary-only: a name for the tree")
     args = ap.parse_args()
 
     import torch
@@ -700,7 +1166,9 @@ def main() -> int:
         print("chip_smoke: torch.cuda.is_available() is False; this script "
               "needs an NVIDIA GPU", file=sys.stderr)
         return 1
-    sys.path.insert(0, str(ROOT / "src"))
+    sys.path.insert(0, str(Path(args.src).resolve()))
+    if args.boundary_only:
+        return boundary_only(torch, args)
     from repro_torch import serving
     from repro_torch.configs.spartus_lstm import DELTA_LSTM_2L_1024H
     from repro_torch.kernels import _build
@@ -747,6 +1215,11 @@ def main() -> int:
     mirror_cost(torch, params, am_cfg, requests, args.seed, out_dir)
     profile_serving(torch, params, am_cfg, requests, out_dir)
 
+    # phase 4: the streaming front-end at full width
+    stream_launches, _ = streaming_runs(
+        torch, params, am_cfg, np.random.default_rng(args.seed + 1), out_dir)
+    launcher_run()
+
     kernels = []
     for name, row in rows.items():
         # stsp_spmv (B=1) serves only the batch-1 engine; the other three
@@ -755,7 +1228,9 @@ def main() -> int:
         kernels.append({
             "name": name, "route": row["route"], "source": row["source"],
             "replaces": row["replaces"], "launches": launches[path][name],
-            "launches_by_path": {p: launches[p][name] for p in launches},
+            "launches_by_path": dict(
+                {p: launches[p][name] for p in launches},
+                stream=stream_launches[name]),
             "max_abs_err": row["max_abs_err"], "ms": row["ms"],
             "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
             "bound_by": row["bound_by"], "library_ms": row["library_ms"],

@@ -5,14 +5,34 @@
                      oracle, and the CBCSC/int8 pack
 - `batched_engine` — continuous-batching multi-session engine
                      (step_batch / step_frames / step_chunk)
-- `scheduler`      — SessionPool admission/eviction and the synchronous
-                     serve_requests driver
+- `scheduler`      — SessionPool: admission, incremental streams, cancel,
+                     partial logits, the non-blocking tick; the
+                     synchronous serve_requests driver
+- `async_server`   — AsyncSpartusServer: the asyncio streaming front-end
+- `checkpoint`     — per-session snapshot/restore and pool checkpoints
+- `faults`         — typed errors, seeded fault injection, backoff
+- `metrics`        — metrics registry, per-chunk time series, tracing
 - `telemetry`      — device-resident per-(layer, slot) sparsity counters
 """
+from repro_torch.serving.async_server import (
+    AsyncSpartusServer,
+    StreamClosed,
+    StreamHandle,
+)
 from repro_torch.serving.batched_engine import (
     BatchedLayerState,
     BatchedSpartusEngine,
     PoolState,
+)
+from repro_torch.serving.checkpoint import (
+    PoolCheckpoint,
+    SessionSnapshot,
+    engine_fingerprint,
+    load_checkpoint,
+    restore_into,
+    save_pool,
+    snapshot_pool,
+    snapshot_session,
 )
 from repro_torch.serving.engine import (
     EngineConfig,
@@ -20,7 +40,28 @@ from repro_torch.serving.engine import (
     PackedSpartusModel,
     SpartusEngine,
 )
+from repro_torch.serving.faults import (
+    AdmissionShed,
+    Backoff,
+    BadRequest,
+    DriverRecovered,
+    FaultEvent,
+    FaultInjector,
+    FaultPlan,
+    InjectedFault,
+    ProtocolError,
+    ServingError,
+    SessionTimeout,
+    error_payload,
+)
+from repro_torch.serving.metrics import (
+    MetricsRegistry,
+    PoolObservability,
+    TimeSeries,
+    Tracer,
+)
 from repro_torch.serving.scheduler import (
+    PartialLogits,
     RequestResult,
     ServeStats,
     SessionPool,

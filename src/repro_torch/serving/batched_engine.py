@@ -28,14 +28,21 @@ chunk as a CUDA graph.
 frame from device-resident buffers by the device cursor; `step_chunk`
 advances every slot up to C frames (a Python loop over the same core)
 and banks each frame's logits in a per-slot device output buffer.
+
+Host vectors (masks, cursors) reach the card through pinned memory with
+``non_blocking=True``, and `snapshot_out` / `snapshot_chunk` stage their
+rows into pinned host buffers behind the chunk with one CUDA event
+(`HostCopy`): a dispatch never waits for the chunk before it, and the
+pool's retirement fetch waits for that chunk's copy only.
 """
 from __future__ import annotations
 
 from typing import Any, Dict, NamedTuple, Optional, Tuple
 
+import numpy as np
 import torch
 
-from repro_torch._device import DeviceLike, as_tensor
+from repro_torch._device import DeviceLike, HostCopy, upload
 from repro_torch.kernels import ops
 from repro_torch.models.lstm_am import LSTMAMConfig
 from repro_torch.serving import telemetry as tele
@@ -77,6 +84,9 @@ class BatchedSpartusEngine(PackedSpartusModel):
         super().__init__(am_params, am_cfg, cfg, device)
         self._dm0 = [l.bias.to(torch.float32).reshape(-1)
                      for l in self.layers]
+        # per-layer column counts on the device, for sync-free totals
+        self._n_cols_dev = torch.tensor(self.n_cols, dtype=torch.float32,
+                                        device=self.device)
 
     # -- state management ----------------------------------------------------
 
@@ -151,10 +161,20 @@ class BatchedSpartusEngine(PackedSpartusModel):
         state.cursor.copy_(new_cursor)
         return self.head(h)
 
+    def _dev(self, x, dtype: torch.dtype) -> torch.Tensor:
+        """A per-slot host vector on the device with no host sync (pinned
+        and non-blocking on a card: the pool's masks and cursors must not
+        wait for the chunk still in flight); tensors pass through."""
+        if isinstance(x, torch.Tensor):
+            return x.to(device=self.device, dtype=dtype)
+        np_dtype = {torch.bool: np.bool_, torch.int32: np.int32,
+                    torch.float32: np.float32}[dtype]
+        return upload(np.asarray(x, np_dtype), self.device)
+
     def _masks(self, active, reset: Optional[Any]):
-        active = as_tensor(active, torch.bool, self.device)
+        active = self._dev(active, torch.bool)
         reset = (torch.zeros_like(active) if reset is None
-                 else as_tensor(reset, torch.bool, self.device))
+                 else self._dev(reset, torch.bool))
         return active, reset
 
     def step_batch(self, state: PoolState, x, active, reset=None
@@ -167,7 +187,7 @@ class BatchedSpartusEngine(PackedSpartusModel):
         inactive slots are garbage."""
         active, reset = self._masks(active, reset)
         self._apply_reset(state, reset, reset_cursor=False)
-        x = as_tensor(x, torch.float32, self.device).contiguous()
+        x = self._dev(x, torch.float32).contiguous()
         return state, self._step_core(state, x, active, state.cursor.clone())
 
     def step_frames(self, state: PoolState, frames: torch.Tensor, active,
@@ -193,7 +213,7 @@ class BatchedSpartusEngine(PackedSpartusModel):
         T_buf + n_frames: frame t of slot b lands in ``out_buf[b, t]``.
         Updates ``state`` and ``out_buf`` in place and returns both."""
         active, reset = self._masks(active, reset)
-        lengths = as_tensor(lengths, torch.int32, self.device)
+        lengths = self._dev(lengths, torch.int32)
         self._apply_reset(state, reset, reset_cursor=True)
         start = state.cursor.clone()
         rows = []
@@ -205,17 +225,26 @@ class BatchedSpartusEngine(PackedSpartusModel):
         ops.bank_rows(out_buf, torch.stack(rows), start)
         return state, out_buf
 
-    def snapshot_out(self, out_buf: torch.Tensor) -> torch.Tensor:
-        """Device-side copy of the whole output buffer (detaches retiring
-        sessions' rows before the next chunk writes the buffer)."""
-        return out_buf.clone()
+    def snapshot_out(self, out_buf: torch.Tensor, slots=None,
+                     n_rows: Optional[int] = None) -> HostCopy:
+        """Retiring sessions' rows, fetched to the host behind the chunk
+        that wrote them: ``out_buf[slots, :n_rows]`` (every slot and row
+        by default) is copied into pinned host memory now, on the current
+        stream, so the copy is ordered before the next chunk overwrites
+        the buffer; ``.wait()`` on the result waits for that copy only
+        (``[len(slots), n_rows, n_classes]``)."""
+        src = out_buf if n_rows is None else out_buf[:, :int(n_rows)]
+        if slots is not None:
+            src = src.index_select(0, self._dev(slots, torch.int32))
+        return HostCopy(src)
 
     def snapshot_chunk(self, out_buf: torch.Tensor, starts, *,
-                       n_frames: int) -> torch.Tensor:
-        """Device-side slice of one chunk's rows for every slot:
-        ``[B, n_frames, n_classes]``."""
-        starts = as_tensor(starts, torch.int32, self.device)
-        return ops.gather_rows(out_buf, starts, int(n_frames))
+                       n_frames: int) -> HostCopy:
+        """One chunk's rows for every slot, ``[B, n_frames, n_classes]``
+        with row b = ``out_buf[b, starts[b]:starts[b] + n_frames]``,
+        fetched to the host behind the chunk like ``snapshot_out``."""
+        starts = self._dev(starts, torch.int32)
+        return HostCopy(ops.gather_rows(out_buf, starts, int(n_frames)))
 
     # -- telemetry -----------------------------------------------------------
 
@@ -225,4 +254,4 @@ class BatchedSpartusEngine(PackedSpartusModel):
 
     def telemetry_totals(self, state: PoolState) -> torch.Tensor:
         """The ``[3]`` running totals, reduced on device (no host sync)."""
-        return tele.fold_totals(state.telemetry, self.n_cols)
+        return tele.fold_totals(state.telemetry, self._n_cols_dev)

@@ -1,26 +1,47 @@
 """Continuous-batching session scheduler for streaming DeltaLSTM serving —
-port of the part of ``repro/serving/scheduler.py`` that
-``serve_requests`` drives.
+port of ``repro/serving/scheduler.py``.
 
 One weight-resident `BatchedSpartusEngine` and a `SessionPool` that
-multiplexes complete utterances across its fixed-capacity slot dimension:
+multiplexes streaming requests across its fixed-capacity slot dimension:
 
-* `admit` attaches a request to a free slot; its frames are staged on the
-  host and uploaded, with every other admission since the last dispatch,
-  in one copy into the pool's ``[B, T_buf, D]`` device buffer.  The
-  slot's state is re-initialised by the ``reset`` mask of the next step.
+* `admit` attaches a complete utterance to a free slot; `admit_stream`
+  admits a session whose utterance is still arriving: `append_frames`
+  stages more frames, `finish_stream` closes the utterance and `cancel`
+  abandons it.  Admissions and appends are staged on the host and
+  written, one wave per dispatch boundary, into the pool's
+  ``[B, T_buf, D]`` device frame buffer by one ``index_copy_`` at exact
+  (slot, frame) offsets.  A session that has consumed everything it
+  received rides the next chunk masked out, like a free slot.
 * `step` advances all active slots one frame (`step_frames`) and fetches
   the ``[B, n_classes]`` logits once per tick.
 * `step_chunk` (``chunk_frames >= 1``) advances every slot up to C frames
-  and banks the logits in a per-slot device output buffer; a finished
-  session's rows are detached device-side when it retires and fetched to
-  the host at the next boundary.
+  and banks the logits in a per-slot device output buffer.  The pool is
+  double-buffered: a session that retires inside a chunk has its rows
+  copied into pinned host memory right behind that chunk, with a CUDA
+  event (`engine.snapshot_out`), and its result is resolved at the next
+  boundary by waiting on that event only — so the fetch overlaps the
+  chunk dispatched in between instead of waiting for it.
+  ``stream_partials=True`` does the same for each chunk's rows of every
+  live slot (`engine.snapshot_chunk`), surfaced as `PartialLogits`.
+* `tick` is the non-blocking driver entry point: at most one dispatch,
+  dispatch-free retirements, and the double-buffer tail; it returns
+  ``(finished_results, frames_advanced)``.  Host vectors reach the card
+  through pinned, non-blocking copies, and the telemetry accumulators
+  are staged to the host behind each chunk like its rows, so the only
+  host wait is on the previous chunk's copy events.
 
-Not ported yet (see ROADMAP.md): incremental streams (``admit_stream`` /
-``append_frames`` / ``finish_stream``), ``cancel``, partial-logit
-streaming, the non-blocking ``tick``, observability, fault injection,
-slot sharding, checkpoints and the cross-thread state lock that the
-async front-end needs.
+`serve_requests` is the synchronous driver and the parity oracle of the
+asyncio front-end (`serving/async_server.py`).
+
+The pool's device state is updated in place (the reference donates it),
+but `_grow_buffers` rebinds ``_frames`` and ``_out``, and a checkpoint
+or an admin scrape on another thread must see a consistent pool: every
+rebinding and every cross-thread read holds ``_state_lock`` (the
+``_guarded_by_`` table below, linted by the reference's
+``analysis/concurrency.py``).  A dispatch takes the lock only to read
+and to rebind the tensors, not across its launches, so a reader never
+waits for the host side of a chunk.  Slot sharding over several GPUs
+(``n_devices > 1``) is not ported (ROADMAP.md queue 1 item 10).
 """
 from __future__ import annotations
 
@@ -32,9 +53,13 @@ from typing import Dict, Iterable, List, Optional, Sequence, Tuple, Union
 import numpy as np
 import torch
 
+from repro_torch._device import HostCopy, upload
+from repro_torch.analysis import lockorder
 from repro_torch.serving import telemetry as tele
 from repro_torch.serving.batched_engine import BatchedSpartusEngine, PoolState
 from repro_torch.serving.engine import tensor_nbytes
+from repro_torch.serving.faults import FaultInjector
+from repro_torch.serving.metrics import NULL_TRACER, PoolObservability
 
 #: default ceiling on the per-slot frame-buffer length (frames)
 DEFAULT_MAX_BUFFER_FRAMES = 4096
@@ -99,26 +124,41 @@ class RequestResult:
 
 
 @dataclasses.dataclass
+class PartialLogits:
+    """One streamed block of logits for a live session (``stream_partials``):
+    rows ``[n, n_classes]`` covering frames ``[t0, t0 + n)``."""
+
+    req_id: int
+    t0: int
+    rows: np.ndarray
+
+
+@dataclasses.dataclass
 class _Session:
     req_id: int
     arrival_step: int
     admit_step: int
     arrival_wall: float
     admit_wall: float
-    total: int             # utterance length
+    total: Optional[int]   # utterance length; None while the client streams
+    n_recv: int = 0        # frames received (staged for device upload)
     cursor: int = 0        # frames consumed by the engine
     last_step: int = 0     # tick of the most recent consumed frame
     needs_reset: bool = True
+    cancelled: bool = False
+    partials_paused: bool = False  # slow consumer: no per-chunk snapshots
     first_logit_wall: float = 0.0  # 0.0 = no logits surfaced yet
     rows: List[np.ndarray] = dataclasses.field(default_factory=list)
 
     @property
     def done(self) -> bool:
-        return self.cursor >= self.total
+        """Every frame of a finished utterance has been consumed."""
+        return self.total is not None and self.cursor >= self.total
 
     @property
     def available(self) -> int:
-        return self.total - self.cursor
+        """Frames received but not yet consumed."""
+        return self.n_recv - self.cursor
 
     def result(self, logits: np.ndarray, *, truncated: bool = False,
                finish_step: Optional[int] = None) -> RequestResult:
@@ -140,11 +180,21 @@ class _Session:
 @dataclasses.dataclass
 class _PendingChunk:
     """Sessions that finished inside a dispatched chunk: their rows were
-    snapshotted device-side and are fetched at the next boundary."""
+    staged to pinned host memory behind that chunk and are resolved at
+    the next boundary (row i of ``rows`` is ``slots[i]``'s)."""
 
     sessions: List[_Session]
     slots: List[int]
-    rows: torch.Tensor     # [B, T_pad, n_classes] device-side snapshot
+    rows: HostCopy         # [len(slots), T, n_classes] once waited on
+
+
+@dataclasses.dataclass
+class _PendingPartials:
+    """One chunk's per-slot logits rows (``engine.snapshot_chunk``),
+    staged behind the chunk and resolved one boundary later."""
+
+    entries: List[Tuple[_Session, int, int, int]]  # (session, slot, t0, n)
+    rows: HostCopy                                 # [B, C, n_classes]
 
 
 @dataclasses.dataclass
@@ -186,7 +236,8 @@ def aggregate_stats(
     truncated: bool = False, chunk_frames: int = 0, n_dispatches: int = 0,
     host_overlap_frac: float = 0.0, bytes_per_slot: float = 0.0,
 ) -> ServeStats:
-    """Reduce per-request results to the aggregate `ServeStats`."""
+    """Reduce per-request results to the aggregate `ServeStats` (shared by
+    `serve_requests` and the asyncio front-end)."""
     frames = int(sum(r.logits.shape[0] for r in results))
     tas = np.array([r.turnaround_steps for r in results], np.float64)
     pl = tele.percentile_summary([r.wall_latency_s for r in results],
@@ -230,25 +281,61 @@ def _frame_bucket(n: int, floor: int = 64) -> int:
     return b
 
 
+def _check_n_devices(n_devices: Optional[int]) -> None:
+    if n_devices not in (None, 1):
+        raise NotImplementedError(
+            f"n_devices={n_devices}: slot sharding over several GPUs is not "
+            f"ported yet (ROADMAP.md queue 1 item 10); use n_devices=None")
+
+
 class SessionPool:
     """Fixed-capacity pool of device-resident streaming sessions.
 
     With ``chunk_frames=C >= 1`` the pool runs the chunked tick loop
-    (`step_chunk` / `flush`); otherwise the per-frame loop (`step`).  An
-    utterance longer than ``max_buffer_frames`` is rejected at admission;
-    the device frame buffers grow in pow2 buckets up to that ceiling.
+    (`step_chunk` / `flush` / `tick`); otherwise the per-frame loop
+    (`step` / `tick`).  ``stream_partials=True`` also stages each chunk's
+    rows so live sessions stream partial logits (`take_partials`).  An
+    utterance longer than ``max_buffer_frames`` (declared at admission or
+    reached by appends) is refused with a ValueError; the device frame
+    buffers grow in pow2 buckets up to that ceiling.
     """
+
+    # Machine-checked lock discipline (the reference's
+    # analysis/concurrency.py lints every .py under src/).  ``state`` is
+    # updated in place, but `_grow_buffers` rebinds ``_frames`` and
+    # ``_out`` and a checkpoint restore writes ``state``; cross-thread
+    # readers (the async server's ``stats()``, the admin endpoint,
+    # snapshots) take the lock, and so do the staged telemetry copy and
+    # its host values, which ``stats()`` reads.  Host bookkeeping
+    # (``_slots``, ``_by_req``, ``_staged``, ``_staged_appends``,
+    # ``_partials``) is tick/driver-thread-only and deliberately absent.
+    _guarded_by_ = {
+        "state": "_state_lock",
+        "_frames": "_state_lock",
+        "_lengths": "_state_lock",
+        "_out": "_state_lock",
+        "_pending": "_state_lock",
+        "_pending_partials": "_state_lock",
+        "_tele_copy": "_state_lock",
+        "_tele_host": "_state_lock",
+    }
 
     def __init__(self, engine: BatchedSpartusEngine, capacity: int,
                  max_frames: int = 64, chunk_frames: int = 0,
-                 max_buffer_frames: Optional[int] = None):
+                 max_buffer_frames: Optional[int] = None,
+                 stream_partials: bool = False,
+                 n_devices: Optional[int] = None,
+                 observability: Optional[PoolObservability] = None,
+                 faults: Optional[FaultInjector] = None):
         if capacity < 1:
             raise ValueError("capacity must be >= 1")
         if chunk_frames < 0:
             raise ValueError("chunk_frames must be >= 0 (0 = per-frame)")
+        _check_n_devices(n_devices)
         self.engine = engine
         self.capacity = capacity
         self.chunk_frames = chunk_frames
+        self.stream_partials = stream_partials
         self.max_buffer_frames = (DEFAULT_MAX_BUFFER_FRAMES
                                   if max_buffer_frames is None
                                   else int(max_buffer_frames))
@@ -256,6 +343,9 @@ class SessionPool:
             raise ValueError(
                 f"max_frames={max_frames} exceeds max_buffer_frames="
                 f"{self.max_buffer_frames}")
+        self._n_devices = n_devices
+        # seeded fault-injection hook (serving/faults.py); None = off
+        self.faults = faults
         dev = engine.device
         self.state: PoolState = engine.init_state(capacity)
         self._slots: List[Optional[_Session]] = [None] * capacity
@@ -271,10 +361,49 @@ class SessionPool:
             engine.init_out_buf(capacity, self._t_buf + chunk_frames)
             if chunk_frames else None)
         self._pending: List[_PendingChunk] = []
+        self._pending_partials: List[_PendingPartials] = []
+        self._partials: List[PartialLogits] = []
+        # the telemetry accumulators staged behind the last dispatch, and
+        # the host values of the newest copy that has landed
+        self._tele_copy: Optional[HostCopy] = None
+        self._tele_host: Optional[List[np.ndarray]] = None
+        # admissions (slot, feats) and appends (slot, start, feats),
+        # staged on the host and written in one wave per boundary
         self._staged: List[Tuple[int, np.ndarray]] = []
+        self._staged_appends: List[Tuple[int, int, np.ndarray]] = []
         self.n_frame_grows = 0
         self.n_dispatches = 0
         self._overlap_fracs: List[float] = []
+        # live observability (metrics.PoolObservability): folded at
+        # dispatch boundaries only, on host values; None = off
+        self.obs = observability
+        self._tracer = (observability.tracer if observability is not None
+                        else NULL_TRACER)
+        self._adm_since_fold = 0
+        self._state_lock = lockorder.make_lock("SessionPool._state_lock")
+
+    def _fire(self, site: str) -> None:
+        """Fault-injection hook: raise if the plan scheduled a failure at
+        this invocation of ``site``.  A ``"poison"`` payload first empties
+        every device state tensor in place (``Tensor.set_()``), modelling
+        a crash that lost the state, so per-slot salvage fails and the
+        watchdog's lost-session path runs."""
+        if self.faults is None:
+            return
+        try:
+            self.faults.fire(site)
+        except Exception as exc:
+            if self.obs is not None:
+                self.obs.fold_fault(site)
+            if getattr(exc, "payload", None) == "poison":
+                with self._state_lock:
+                    for t in self.state.tensors():
+                        t.set_()
+            raise
+
+    def shard_loads(self) -> List[int]:
+        """Occupied-slot count per shard (one shard: the whole pool)."""
+        return [self.n_active]
 
     @property
     def n_active(self) -> int:
@@ -286,47 +415,219 @@ class SessionPool:
 
     @property
     def has_pending(self) -> bool:
-        """Chunked mode: retired sessions whose host fetch is outstanding."""
-        return bool(self._pending)
+        """Chunked mode: retired sessions (or streamed chunks) whose host
+        fetch is still outstanding."""
+        with self._state_lock:
+            return bool(self._pending or self._pending_partials
+                        or self._partials)
+
+    @property
+    def has_retirable(self) -> bool:
+        """Sessions that can retire (or be reaped) without another
+        dispatch."""
+        return any(s is not None and (s.done or s.cancelled)
+                   for s in self._slots)
 
     # -- admission -----------------------------------------------------------
 
     def admit(self, request: StreamRequest, now: int,
               arrival_wall: Optional[float] = None) -> bool:
-        """Attach `request` to the first free slot; False if the pool is
-        full.  Raises ValueError for an empty, malformed or oversized
-        utterance."""
+        """Attach `request` (a complete utterance) to the first free slot;
+        False if the pool is full.  Raises ValueError for an empty,
+        malformed or oversized utterance."""
         if request.n_frames == 0:
             raise ValueError(f"request {request.req_id} has no frames")
         feats = validated_frames(request.feats, request.req_id,
                                  self.engine.input_dim)
-        if request.req_id in self._by_req:
-            raise ValueError(f"request {request.req_id} is already in the "
-                             f"pool")
-        n = int(feats.shape[0])
-        if n > self.max_buffer_frames:
+        return self._bind(request.req_id, request.arrival_step, now, feats,
+                          total=request.n_frames, arrival_wall=arrival_wall)
+
+    def admit_stream(self, req_id: int, now: int,
+                     feats: Optional[np.ndarray] = None,
+                     arrival_step: Optional[int] = None,
+                     arrival_wall: Optional[float] = None) -> bool:
+        """Admit a session whose utterance is still arriving; False if the
+        pool is full.  ``feats`` optionally carries the frames received so
+        far; more arrive via ``append_frames`` and ``finish_stream``
+        closes the utterance."""
+        feats = (np.zeros((0, self.engine.input_dim), np.float32)
+                 if feats is None else validated_frames(feats, req_id))
+        return self._bind(req_id, now if arrival_step is None else
+                          arrival_step, now, feats, total=None,
+                          arrival_wall=arrival_wall)
+
+    def _bind(self, req_id: int, arrival_step: int, now: int,
+              feats: np.ndarray, total: Optional[int],
+              arrival_wall: Optional[float]) -> bool:
+        if req_id in self._by_req:
+            raise ValueError(f"request {req_id} is already in the pool")
+        if feats.size and feats.shape[-1] != self.engine.input_dim:
             raise ValueError(
-                f"request {request.req_id}: utterance of {n} frames exceeds "
-                f"the frame-buffer growth limit (max_buffer_frames="
-                f"{self.max_buffer_frames}); split the stream or build the "
-                f"pool with a larger limit")
-        k = next((i for i, s in enumerate(self._slots) if s is None), None)
+                f"request {req_id}: feature dim {feats.shape[-1]} != "
+                f"engine input dim {self.engine.input_dim}")
+        n = int(feats.shape[0])
+        if max(n, total or 0) > self.max_buffer_frames:
+            raise ValueError(
+                f"request {req_id}: utterance of {max(n, total or 0)} frames "
+                f"exceeds the frame-buffer growth limit "
+                f"(max_buffer_frames={self.max_buffer_frames}); split the "
+                f"stream or build the pool with a larger limit")
+        k = self._pick_slot()
         if k is None:
             return False
         wall = time.perf_counter() if arrival_wall is None else arrival_wall
         self._slots[k] = _Session(
-            req_id=request.req_id, arrival_step=request.arrival_step,
-            admit_step=now, arrival_wall=wall,
-            admit_wall=time.perf_counter(), total=n, last_step=now - 1)
-        self._by_req[request.req_id] = k
+            req_id=req_id, arrival_step=arrival_step, admit_step=now,
+            arrival_wall=wall, admit_wall=time.perf_counter(), total=total,
+            n_recv=n, last_step=now - 1)
+        self._by_req[req_id] = k
+        # a zero-length staging still resets the slot's device length
         self._staged.append((k, feats))
+        self._adm_since_fold += 1
+        if self.obs is not None:
+            self.obs.fold_admissions(1)
         return True
+
+    def _pick_slot(self) -> Optional[int]:
+        """The first free slot (one shard)."""
+        return next((k for k, s in enumerate(self._slots) if s is None),
+                    None)
+
+    def _live(self, req_id: int) -> _Session:
+        if req_id not in self._by_req:
+            raise KeyError(f"request {req_id} is not in the pool")
+        sess = self._slots[self._by_req[req_id]]
+        assert sess is not None
+        return sess
+
+    def append_frames(self, req_id: int, feats: np.ndarray) -> None:
+        """Stage more frames for a live streaming session (written with
+        the next boundary's wave)."""
+        sess = self._live(req_id)
+        if sess.total is not None:
+            raise ValueError(f"request {req_id} is already finished")
+        if sess.cancelled:
+            raise ValueError(f"request {req_id} was cancelled")
+        feats = validated_frames(feats, req_id)
+        if feats.ndim != 2 or feats.shape[-1] != self.engine.input_dim:
+            raise ValueError(
+                f"request {req_id}: appended frames must be [n, "
+                f"{self.engine.input_dim}], got {feats.shape}")
+        if feats.shape[0] == 0:
+            return
+        new_total = sess.n_recv + int(feats.shape[0])
+        if new_total > self.max_buffer_frames:
+            raise ValueError(
+                f"request {req_id}: appending {feats.shape[0]} frames would "
+                f"reach {new_total} frames, past the frame-buffer growth "
+                f"limit (max_buffer_frames={self.max_buffer_frames})")
+        self._staged_appends.append(
+            (self._by_req[req_id], sess.n_recv, feats))
+        sess.n_recv = new_total
+
+    def finish_stream(self, req_id: int) -> None:
+        """No more frames: the session retires once it has consumed
+        everything received (possibly without another dispatch)."""
+        sess = self._live(req_id)
+        if sess.total is None:
+            sess.total = sess.n_recv
+
+    def cancel(self, req_id: int) -> None:
+        """Abandon a session: its slot frees at the next boundary and no
+        result is produced — also inside the retirement window (finished
+        in a dispatched chunk, host fetch outstanding), where the staged
+        rows are dropped at resolve time.  Raises KeyError only for a
+        request the pool has no trace of."""
+        if req_id in self._by_req:
+            sess = self._slots[self._by_req[req_id]]
+            assert sess is not None
+            if not sess.cancelled and self.obs is not None:
+                self.obs.fold_cancelled(1)
+            sess.cancelled = True
+            return
+        with self._state_lock:
+            pending = list(self._pending)
+        for p in pending:
+            for sess in p.sessions:
+                if sess.req_id == req_id:
+                    if not sess.cancelled and self.obs is not None:
+                        self.obs.fold_cancelled(1)
+                    sess.cancelled = True
+                    return
+        raise KeyError(f"request {req_id} is not in the pool")
+
+    def pause_partials(self, req_id: int) -> None:
+        """Stop staging partial-logit chunks for one live session (a
+        lagging consumer); its rows keep banking on the device and stay
+        recoverable with ``peek_rows``.  Chunked pools only."""
+        if not self.chunk_frames:
+            raise RuntimeError("pause_partials requires a chunked pool "
+                               "(chunk_frames >= 1)")
+        self._live(req_id).partials_paused = True
+
+    def resume_partials(self, req_id: int) -> None:
+        """Re-enable per-chunk partial snapshots for a live session."""
+        if not self.chunk_frames:
+            raise RuntimeError("resume_partials requires a chunked pool "
+                               "(chunk_frames >= 1)")
+        self._live(req_id).partials_paused = False
+
+    def peek_rows(self, req_id: int, t0: int = 0) -> np.ndarray:
+        """A live session's banked logits rows ``[t0, cursor)`` (chunked
+        mode only): the slow-consumer backfill.  The copy is enqueued
+        behind the in-flight chunk, whose rows it includes, and waited on
+        by its own event — a rare, caller-initiated wait."""
+        if not self.chunk_frames:
+            raise RuntimeError("peek_rows requires a chunked pool "
+                               "(chunk_frames >= 1)")
+        sess = self._live(req_id)
+        hi = sess.cursor
+        if t0 >= hi:
+            return np.zeros((0, self.engine.n_classes), np.float32)
+        with self._state_lock:
+            fetch = HostCopy(self._out[self._by_req[req_id], t0:hi])
+        return fetch.numpy()
+
+    def backfill_partials(self, req_id: int, t0: int) -> int:
+        """The slow-consumer backfill without a wait: stage a live
+        session's banked rows ``[t0, cursor)`` to the host behind the
+        last dispatched chunk, as one pending partial block that the next
+        boundary resolves (and `take_partials` then returns) ahead of the
+        next chunk's blocks, and resume its per-chunk snapshots.  Returns
+        the number of rows staged (chunked mode only)."""
+        if not self.chunk_frames:
+            raise RuntimeError("backfill_partials requires a chunked pool "
+                               "(chunk_frames >= 1)")
+        sess = self._live(req_id)
+        n = sess.cursor - t0
+        if n > 0:
+            k = self._by_req[req_id]
+            with self._state_lock:
+                self._pending_partials.append(_PendingPartials(
+                    entries=[(sess, 0, t0, n)],
+                    rows=HostCopy(self._out[k:k + 1, t0:sess.cursor])))
+        sess.partials_paused = False
+        return max(n, 0)
+
+    def _reap_cancelled(self) -> None:
+        """Free cancelled sessions' slots and drop their staged uploads
+        (called at every boundary, before masks are computed)."""
+        dead = [k for k, s in enumerate(self._slots)
+                if s is not None and s.cancelled]
+        if not dead:
+            return
+        gone = set(dead)
+        for k in dead:
+            self._free(k)
+        self._staged = [(k, f) for k, f in self._staged if k not in gone]
+        self._staged_appends = [(k, st, f) for k, st, f in
+                                self._staged_appends if k not in gone]
 
     # -- device upload staging ----------------------------------------------
 
     def _grow_buffers(self, t_need: int) -> None:
         """One device-side realloc straight to ``t_need``'s pow2 bucket;
-        resident frames are copied device to device."""
+        resident frames (and banked logits) are copied device to device."""
         old_t = self._t_buf
         new_t = _frame_bucket(t_need, floor=old_t)
         grown = self._frames.new_zeros((self.capacity, new_t,
@@ -342,30 +643,45 @@ class SessionPool:
         self.n_frame_grows += 1
 
     def _flush_uploads(self) -> None:
-        """One host-to-device copy of every utterance admitted since the
-        last dispatch (zero tails clear the slots' previous occupants)."""
-        if not self._staged:
+        """Write every admission and append staged since the last boundary
+        into the device frame buffer: one host-to-device copy of the new
+        frames and their flat (slot, frame) offsets, one ``index_copy_``,
+        and the slots' new lengths.  An admission writes frames
+        ``[0, n)`` of its slot; an append ``[start, start + n)``, where
+        start is the frames received before it — positions are exact, so
+        nothing clamps into earlier frames.  A buffer too short for the
+        wave grows first, straight to the bucket it needs."""
+        self._fire("admission_upload")
+        blocks = ([(k, 0, f) for k, f in self._staged]
+                  + self._staged_appends)
+        if not blocks:
             return
-        t_need = max(f.shape[0] for _, f in self._staged)
-        if t_need > self._t_buf:
-            self._grow_buffers(t_need)
-        r = len(self._staged)
-        rows = np.zeros((r, self._t_buf, self.engine.input_dim), np.float32)
-        slots = np.zeros((r,), np.int64)
-        ts = np.zeros((r,), np.int32)
-        for i, (k, feats) in enumerate(self._staged):
-            rows[i, :feats.shape[0]] = feats
-            slots[i] = k
-            ts[i] = feats.shape[0]
+        lengths: Dict[int, int] = {}
+        for k, start, feats in blocks:
+            lengths[k] = start + int(feats.shape[0])
+        t_need = max(lengths.values())
+        rows = [f for _, _, f in blocks if f.shape[0]]
+        with self._state_lock:
+            if t_need > self._t_buf:
+                self._grow_buffers(t_need)
+            dev = self.engine.device
+            if rows:
+                t_buf = self._t_buf
+                flat = np.concatenate([
+                    k * t_buf + start + np.arange(f.shape[0], dtype=np.int64)
+                    for k, start, f in blocks if f.shape[0]])
+                self._frames.view(-1, self.engine.input_dim).index_copy_(
+                    0, upload(flat, dev), upload(np.concatenate(rows), dev))
+            slots = np.fromiter(lengths.keys(), np.int64, len(lengths))
+            ts = np.fromiter(lengths.values(), np.int32, len(lengths))
+            self._lengths.index_copy_(0, upload(slots, dev), upload(ts, dev))
         self._staged.clear()
-        dev = self.engine.device
-        slot_t = torch.from_numpy(slots).to(dev)
-        self._frames[slot_t] = torch.from_numpy(rows).to(dev)
-        self._lengths[slot_t] = torch.from_numpy(ts).to(dev)
+        self._staged_appends.clear()
 
     def _masks(self) -> Tuple[np.ndarray, np.ndarray]:
-        """active = occupied with unconsumed frames; reset = admitted since
-        the last dispatch."""
+        """active = occupied with unconsumed frames (a starved stream
+        rides along masked out); reset = admitted since the last
+        dispatch."""
         active = np.zeros((self.capacity,), bool)
         reset = np.zeros((self.capacity,), bool)
         for k, sess in enumerate(self._slots):
@@ -390,14 +706,27 @@ class SessionPool:
             raise RuntimeError(
                 "this pool was built with chunk_frames >= 1; "
                 "drive it with step_chunk()/flush(), not step()")
+        self._reap_cancelled()
         active, reset = self._masks()
         if not active.any():
             return []
-        self._flush_uploads()
-        self.state, logits = self.engine.step_frames(
-            self.state, self._frames, active, reset)
+        with self._tracer.span("admission_upload"):
+            self._flush_uploads()
+        self._fire("dispatch")
+        t0 = time.perf_counter()
+        with self._state_lock:
+            state, frames = self.state, self._frames
+        with self._tracer.span("dispatch"):
+            state, logits = self.engine.step_frames(state, frames, active,
+                                                    reset)
+        with self._state_lock:
+            self.state = state
+            self._tele_copy = HostCopy(*state.telemetry)
         self.n_dispatches += 1
-        logits_np = logits.cpu().numpy()        # one device->host fetch/tick
+        t_dispatched = time.perf_counter()
+        with self._tracer.span("snapshot_fetch"):
+            logits_np = HostCopy(logits).numpy()   # one fetch per tick
+            self._resolve_telemetry()              # landed before logits
         finished: List[RequestResult] = []
         for k, sess in enumerate(self._slots):
             if sess is None:
@@ -405,20 +734,32 @@ class SessionPool:
             sess.needs_reset = False
             if not active[k]:
                 continue
-            sess.rows.append(logits_np[k].copy())
+            row = logits_np[k].copy()
+            sess.rows.append(row)
             if not sess.first_logit_wall:
                 sess.first_logit_wall = time.perf_counter()
+            if self.stream_partials:
+                self._partials.append(PartialLogits(
+                    req_id=sess.req_id, t0=sess.cursor, rows=row[None]))
             sess.cursor += 1
             sess.last_step = now
             if sess.done:
                 finished.append(sess.result(np.stack(sess.rows)))
                 self._free(k)
+        if self.obs is not None:
+            self.obs.fold_results(finished)
+            self._fold_boundary(
+                n_active=int(active.sum()), frames=int(active.sum()),
+                dispatch_s=t_dispatched - t0,
+                chunk_s=time.perf_counter() - t0,
+                overlap=0.0, retirements=len(finished))
         return finished
 
     # -- chunked tick loop ---------------------------------------------------
 
     def max_chunk_advance(self) -> int:
-        """Ticks the next ``step_chunk`` will consume (0 when idle)."""
+        """Ticks the next ``step_chunk`` will consume (0 when every
+        session is starved or none is active)."""
         rem = [s.available for s in self._slots if s is not None]
         return min(self.chunk_frames, max(rem)) if rem else 0
 
@@ -433,24 +774,44 @@ class SessionPool:
         """Advance every active session up to ``chunk_frames`` frames.
 
         Returns the results of sessions that retired in the PREVIOUS
-        chunk; sessions finishing in this one have their rows snapshotted
-        device-side now and surface at the next ``step_chunk``/``flush``."""
+        chunk: their rows were staged to the host behind that chunk, and
+        resolving them waits on that copy only — not on the chunk just
+        dispatched.  Sessions finishing in this chunk surface at the next
+        ``step_chunk``/``tick``/``flush``; with ``stream_partials`` every
+        advancing session's rows surface as ``PartialLogits`` on the same
+        one-chunk-later cadence."""
         if not self.chunk_frames:
             raise RuntimeError(
                 "this pool was built with chunk_frames=0; use step()")
+        self._reap_cancelled()
+        self._queue_done_retirements()
         active, reset = self._masks()
         if not active.any():
             return self.flush()
         n = self._chunk_len()
-        self._flush_uploads()
+        starts = np.array([0 if s is None else s.cursor
+                           for s in self._slots], np.int32)
+        with self._tracer.span("admission_upload"):
+            self._flush_uploads()
+        self._fire("dispatch")
         t0 = time.perf_counter()
-        self.state, self._out = self.engine.step_chunk(
-            self.state, self._frames, self._lengths, active, reset,
-            self._out, n_frames=n)
+        with self._state_lock:
+            state, frames, lengths, out = (self.state, self._frames,
+                                           self._lengths, self._out)
+        with self._tracer.span("dispatch"):
+            state, out = self.engine.step_chunk(
+                state, frames, lengths, active, reset, out, n_frames=n)
+        with self._state_lock:
+            self.state, self._out = state, out
+            tele_copy = HostCopy(*state.telemetry)
         self.n_dispatches += 1
         t_dispatched = time.perf_counter()
+
+        # ---- everything below overlaps the in-flight device chunk ----
         retiring: List[_Session] = []
         slots: List[int] = []
+        partial_entries: List[Tuple[_Session, int, int, int]] = []
+        frames_this = 0
         for k, sess in enumerate(self._slots):
             if sess is None:
                 continue
@@ -458,34 +819,180 @@ class SessionPool:
             adv = min(n, sess.available)
             if adv <= 0:
                 continue
+            frames_this += adv
             sess.cursor += adv
             sess.last_step = now + adv - 1
+            if self.stream_partials and not sess.partials_paused:
+                partial_entries.append((sess, k, int(starts[k]), adv))
             if sess.done:
                 retiring.append(sess)
                 slots.append(k)
                 self._free(k)
-        newly = ([_PendingChunk(sessions=retiring, slots=slots,
-                                rows=self.engine.snapshot_out(self._out))]
-                 if retiring else [])
-        finished = self._resolve()          # the PREVIOUS chunk's retirees
+        newly: List[_PendingChunk] = []
+        newly_partials: List[_PendingPartials] = []
+        if retiring or partial_entries:
+            with self._state_lock:
+                if retiring:
+                    newly.append(self._snapshot_retirees(retiring, slots))
+                if partial_entries:
+                    newly_partials.append(_PendingPartials(
+                        entries=partial_entries,
+                        rows=self.engine.snapshot_chunk(self._out, starts,
+                                                        n_frames=n)))
+        with self._tracer.span("snapshot_fetch"):
+            finished = self._resolve()       # the PREVIOUS chunk's copies
         t_end = time.perf_counter()
-        self._pending.extend(newly)
-        if t_end > t0:
-            self._overlap_fracs.append((t_end - t_dispatched) / (t_end - t0))
+        with self._state_lock:
+            self._pending.extend(newly)
+            self._pending_partials.extend(newly_partials)
+            self._tele_copy = tele_copy
+
+        wall = t_end - t0
+        overlap = 0.0
+        if wall > 0:
+            overlap = (t_end - t_dispatched) / wall
+            self._overlap_fracs.append(overlap)
+        if self.obs is not None:
+            self._fold_boundary(
+                n_active=int(active.sum()), frames=frames_this,
+                dispatch_s=t_dispatched - t0, chunk_s=wall,
+                overlap=overlap, retirements=len(finished))
         return finished
 
+    def _snapshot_retirees(self, sessions: List[_Session],
+                           slots: List[int]) -> _PendingChunk:
+        """Stage the retiring slots' banked rows to the host behind the
+        chunk that wrote them (caller holds ``_state_lock``)."""
+        n_rows = max(1, max(s.cursor for s in sessions))
+        return _PendingChunk(
+            sessions=sessions, slots=slots,
+            rows=self.engine.snapshot_out(self._out, slots, n_rows=n_rows))
+
+    def _queue_done_retirements(self) -> None:
+        """Retire sessions that are already done WITHOUT another dispatch
+        (a stream finished after its last received frame was consumed, or
+        with zero frames): stage their banked rows now; the results
+        surface at the next resolve like any other retirement."""
+        retiring: List[_Session] = []
+        slots: List[int] = []
+        for k, sess in enumerate(self._slots):
+            if sess is not None and sess.done:
+                retiring.append(sess)
+                slots.append(k)
+                self._free(k)
+        if retiring:
+            with self._state_lock:
+                self._pending.append(self._snapshot_retirees(retiring,
+                                                             slots))
+
     def flush(self) -> List[RequestResult]:
-        """Resolve retirements still pending from the last chunk."""
+        """Resolve retirements (and streamed partials) still pending from
+        the last dispatched chunk (the double-buffer tail)."""
+        if self.chunk_frames:
+            self._reap_cancelled()
+            self._queue_done_retirements()
         return self._resolve()
 
+    def tick(self, now: int) -> Tuple[List[RequestResult], int]:
+        """Non-blocking driver entry: at most one dispatch, in either mode.
+
+        Returns ``(finished_results, frames_advanced)``.  Safe to call
+        with nothing to do; handles cancellations, dispatch-free
+        retirements and the double-buffer tail.  The only host wait is
+        on the previous chunk's staged copies (per-frame mode waits for
+        its own logits, as always)."""
+        if self.chunk_frames:
+            adv = self.max_chunk_advance()
+            if adv:
+                return self.step_chunk(now), adv
+            return self.flush(), 0
+        self._reap_cancelled()
+        finished: List[RequestResult] = []
+        for k, sess in enumerate(self._slots):
+            if sess is not None and sess.done:
+                finished.append(sess.result(
+                    np.stack(sess.rows) if sess.rows else np.zeros(
+                        (0, self.engine.n_classes), np.float32)))
+                self._free(k)
+        if self.obs is not None:
+            self.obs.fold_results(finished)
+        active, _ = self._masks()
+        if active.any():
+            return finished + self.step(now), 1
+        return finished, 0
+
+    def take_partials(self) -> List[PartialLogits]:
+        """Drain the streamed per-chunk logits resolved so far (in frame
+        order per session; ``stream_partials`` only)."""
+        out, self._partials = self._partials, []
+        return out
+
     def _resolve(self) -> List[RequestResult]:
-        pend, self._pending = self._pending, []
+        self._resolve_telemetry()
+        self._resolve_partials()
+        return self._resolve_pending()
+
+    def _resolve_telemetry(self) -> None:
+        """Wait for the telemetry copy staged behind the previous
+        dispatch and keep its host values (what `staged_sparsity`
+        reads)."""
+        with self._state_lock:
+            copy, self._tele_copy = self._tele_copy, None
+        if copy is not None:
+            host = copy.numpy()                # waits on its own event
+            with self._state_lock:
+                self._tele_host = host
+
+    def _resolve_partials(self) -> None:
+        with self._state_lock:
+            pend, self._pending_partials = self._pending_partials, []
+        for p in pend:
+            rows = p.rows.numpy()              # waits on its own event
+            for sess, k, t0, adv in p.entries:
+                if sess.cancelled:
+                    continue                   # cancelled mid-window
+                if not sess.first_logit_wall:
+                    sess.first_logit_wall = time.perf_counter()
+                self._partials.append(PartialLogits(
+                    req_id=sess.req_id, t0=t0, rows=rows[k, :adv].copy()))
+
+    def _resolve_pending(self) -> List[RequestResult]:
+        with self._state_lock:
+            pend, self._pending = self._pending, []
         out: List[RequestResult] = []
         for p in pend:
-            rows = p.rows.cpu().numpy()         # one fetch for all retirees
-            for sess, k in zip(p.sessions, p.slots):
-                out.append(sess.result(rows[k, :sess.cursor].copy()))
+            rows = p.rows.numpy()              # waits on its own event
+            for i, sess in enumerate(p.sessions):
+                if sess.cancelled:
+                    continue   # cancelled inside the retirement window:
+                    #            the staged rows are dropped, never delivered
+                out.append(sess.result(rows[i, :sess.cursor].copy()))
+        if self.obs is not None and out:
+            self.obs.fold_results(out)
         return out
+
+    def _fold_boundary(self, *, n_active: int, frames: int,
+                       dispatch_s: float, chunk_s: float, overlap: float,
+                       retirements: int) -> None:
+        """One dispatch boundary's fold into the observability layer —
+        host values only, plus the telemetry totals staged to the host
+        behind this chunk, which the NEXT boundary's fold resolves."""
+        adm, self._adm_since_fold = self._adm_since_fold, 0
+        with self._state_lock:
+            totals = HostCopy(self.engine.telemetry_totals(self.state))
+        self.obs.fold_chunk(
+            occupancy=self.n_active,
+            capacity=self.capacity,
+            n_active=n_active,
+            frames_advanced=frames,
+            dispatch_s=dispatch_s,
+            chunk_s=chunk_s,
+            host_overlap_frac=overlap,
+            admissions=adm,
+            retirements=retirements,
+            shard_loads=self.shard_loads(),
+            telemetry_totals=totals,
+        )
 
     def mean_host_overlap_frac(self) -> float:
         return (float(np.mean(self._overlap_fracs)) if self._overlap_fracs
@@ -494,36 +1001,122 @@ class SessionPool:
     def drain(self, now: int) -> List[RequestResult]:
         """Evict every in-flight session into truncated ``RequestResult``s
         holding the logits produced so far (``serve_requests`` hitting
-        ``max_steps``)."""
+        ``max_steps``).  Pending retirements are resolved first."""
         n_classes = self.engine.n_classes
         self._staged.clear()    # evicted sessions' uploads must not land
-        out = self._resolve()
+        self._staged_appends.clear()
+        self._reap_cancelled()
+        out: List[RequestResult] = self._resolve()
+        bank = None
+        if self.chunk_frames and self.n_active:
+            with self._state_lock:
+                bank = HostCopy(self._out)
+            bank = bank.numpy()
+        drained: List[RequestResult] = []
         for k, sess in enumerate(self._slots):
             if sess is None:
                 continue
-            if not sess.cursor:
-                logits = np.zeros((0, n_classes), np.float32)
-            elif self.chunk_frames:
-                logits = self._out[k, :sess.cursor].cpu().numpy()
+            if bank is not None:
+                logits = bank[k, :sess.cursor].copy()
             else:
-                logits = np.stack(sess.rows)
-            out.append(sess.result(logits, truncated=not sess.done,
-                                   finish_step=now))
+                logits = (np.stack(sess.rows) if sess.rows
+                          else np.zeros((0, n_classes), np.float32))
+            drained.append(sess.result(logits, truncated=not sess.done,
+                                       finish_step=now))
             self._free(k)
-        return out
+        if self.obs is not None:
+            self.obs.fold_results(drained)
+        return out + drained
 
     def measured_sparsity(self) -> Dict[str, float]:
-        return self.engine.measured_sparsity(self.state)
+        # the lock keeps a restore on another thread from writing the
+        # state mid-fetch; the fetch itself follows the in-flight chunk
+        with self._state_lock:
+            return self.engine.measured_sparsity(self.state)
+
+    def staged_sparsity(self) -> Dict[str, float]:
+        """`measured_sparsity` as of the newest dispatch whose telemetry
+        copy has landed (one chunk behind at most while the pool runs,
+        exact once it is idle and flushed).  It never waits on the
+        device: the read for a thread that must not (the async server's
+        ``stats()``)."""
+        with self._state_lock:
+            copy = self._tele_copy
+            landed = None if copy is None else copy.poll()
+            if landed is not None:
+                self._tele_copy = None
+                self._tele_host = [t.numpy() for t in landed]
+            host = self._tele_host
+        if host is None:
+            return tele.summarize(np.zeros(1), np.zeros(1), np.zeros(1), [1])
+        return tele.summarize(*host, self.engine.n_cols)
 
     def bytes_per_slot(self) -> float:
         """Device bytes held per resident session: its share of the state
-        slabs, frame buffer, logits bank and the shared packed weights."""
-        total = sum(tensor_nbytes(t) for t in self.state.tensors())
-        total += tensor_nbytes(self._frames) + tensor_nbytes(self._lengths)
-        if self._out is not None:
-            total += tensor_nbytes(self._out)
+        slabs, frame buffer, logits bank and the shared packed weights.
+        Shape arithmetic only; folds the ``spartus_slot_bytes`` gauge when
+        observability is attached."""
+        with self._state_lock:
+            total = sum(tensor_nbytes(t) for t in self.state.tensors())
+            total += tensor_nbytes(self._frames) + tensor_nbytes(self._lengths)
+            if self._out is not None:
+                total += tensor_nbytes(self._out)
         total += self.engine.weight_bytes()
-        return float(total / self.capacity)
+        per_slot = total / self.capacity
+        if self.obs is not None:
+            self.obs.fold_slot_bytes(per_slot)
+        return float(per_slot)
+
+    # -- checkpoint / restore (serving/checkpoint.py) ------------------------
+
+    def pool_config(self) -> Dict[str, object]:
+        """Constructor kwargs that rebuild an equivalent (empty) pool —
+        the watchdog's recovery recipe; ``max_frames`` is the current
+        buffer bucket, so the rebuilt pool needs no regrow."""
+        return dict(
+            capacity=self.capacity,
+            max_frames=self._t_buf,
+            chunk_frames=self.chunk_frames,
+            max_buffer_frames=self.max_buffer_frames,
+            stream_partials=self.stream_partials,
+            n_devices=self._n_devices,
+        )
+
+    def snapshot(self):
+        """In-memory whole-pool snapshot (``PoolCheckpoint``): every live
+        session in one gathered device-to-host fetch.  Call ``flush()``
+        first if the double-buffer tail must be resolved, not dropped."""
+        from repro_torch.serving import checkpoint as ckptlib
+
+        return ckptlib.snapshot_pool(self)
+
+    def snapshot_session(self, req_id: int):
+        """Serialize one live session (``SessionSnapshot``)."""
+        from repro_torch.serving import checkpoint as ckptlib
+
+        return ckptlib.snapshot_session(self, req_id)
+
+    def restore_session(self, snap) -> bool:
+        """Restore one ``SessionSnapshot`` into a free slot; False when
+        the pool is full.  The session continues bit-identically."""
+        from repro_torch.serving import checkpoint as ckptlib
+
+        return ckptlib.restore_session(self, snap)
+
+    def checkpoint(self, path: str) -> List[RequestResult]:
+        """Write the whole pool to a checkpoint directory (atomic,
+        committed, retained).  Flushes the double-buffer tail first and
+        returns those finished results."""
+        from repro_torch.serving import checkpoint as ckptlib
+
+        return ckptlib.save_pool(self, path)
+
+    def restore(self, path: str, step: Optional[int] = None) -> None:
+        """Load a pool checkpoint into THIS (fresh, empty) pool; its
+        capacity may differ from the writer's."""
+        from repro_torch.serving import checkpoint as ckptlib
+
+        ckptlib.restore_into(self, ckptlib.load_checkpoint(path, step))
 
 
 RequestLike = Union[StreamRequest, Tuple[int, np.ndarray]]
@@ -547,6 +1140,8 @@ def serve_requests(
     capacity: int,
     max_steps: Optional[int] = None,
     chunk_frames: int = 0,
+    n_devices: Optional[int] = None,
+    observability: Optional[PoolObservability] = None,
 ) -> Tuple[List[RequestResult], ServeStats]:
     """Drive a request stream through a `SessionPool` to completion, on
     the engine's device.
@@ -555,14 +1150,19 @@ def serve_requests(
     Admission is FIFO in arrival order; a request that finds the pool full
     waits.  ``chunk_frames=C >= 1`` selects the chunked tick loop, 0 the
     per-frame loop.  If ``max_steps`` stops the run early, in-flight
-    sessions are drained into ``truncated`` results.  Returns per-request
-    results sorted by ``req_id`` and aggregate stats."""
+    sessions are drained into ``truncated`` results.  ``n_devices`` may
+    be None or 1 (slot sharding is not ported).  ``observability`` folds
+    every dispatch boundary into a `PoolObservability`; results are the
+    same with it on or off.  Returns per-request results sorted by
+    ``req_id`` and aggregate stats."""
+    _check_n_devices(n_devices)
     pending = deque(_normalize(requests))
     n_requests = len(pending)
     max_frames = max((r.n_frames for r in pending), default=1)
     pool = SessionPool(
         engine, capacity, max_frames=max_frames, chunk_frames=chunk_frames,
-        max_buffer_frames=max(max_frames, DEFAULT_MAX_BUFFER_FRAMES))
+        max_buffer_frames=max(max_frames, DEFAULT_MAX_BUFFER_FRAMES),
+        n_devices=n_devices, observability=observability)
     waiting: deque = deque()
     results: List[RequestResult] = []
     now = 0
@@ -597,6 +1197,8 @@ def serve_requests(
     if engine.device.type == "cuda":
         torch.cuda.synchronize(engine.device)
     wall = time.perf_counter() - t0
+    if observability is not None:
+        observability.flush_totals()
     results.sort(key=lambda r: r.req_id)
     stats = aggregate_stats(
         results, capacity=capacity, n_requests=n_requests,

@@ -55,21 +55,20 @@ def percentile_summary(values: Sequence[float], name: str,
     return {f"p{q}_{name}": float(np.percentile(arr, q)) for q in qs}
 
 
-def fold_totals(tel: TelemetryState, n_cols: Sequence[int]) -> torch.Tensor:
+def fold_totals(tel: TelemetryState, n_cols: torch.Tensor) -> torch.Tensor:
     """The three running totals on device, no host sync:
-    ``[sum_l nnz_sum_l / n_cols_l, overflow.sum(), steps.sum()]``."""
-    cols = torch.as_tensor(n_cols, dtype=torch.float32,
-                           device=tel.steps.device)[:, None]
-    return torch.stack([(tel.nnz_sum / cols).sum(),
+    ``[sum_l nnz_sum_l / n_cols_l, overflow.sum(), steps.sum()]``.
+    ``n_cols`` is the ``[L]`` float32 column count, already on the
+    accumulators' device (a host list would be copied up with a sync)."""
+    return torch.stack([(tel.nnz_sum / n_cols[:, None]).sum(),
                         tel.overflow_steps.sum(), tel.steps.sum()])
 
 
-def measured_sparsity(tel: TelemetryState,
-                      n_cols: Sequence[int]) -> Dict[str, float]:
-    """Reduce the accumulators to the engine's summary dict (the one host
-    fetch of the telemetry path).  An idle pool returns the keys zeroed."""
-    nnz, ovf, steps = (a.detach().cpu().numpy().astype(np.float64)
-                       for a in tel)
+def summarize(nnz: np.ndarray, ovf: np.ndarray, steps: np.ndarray,
+              n_cols: Sequence[int]) -> Dict[str, float]:
+    """Reduce host copies of the accumulators to the engine's summary
+    dict.  An idle pool returns the keys zeroed."""
+    nnz, ovf, steps = (np.asarray(a, np.float64) for a in (nnz, ovf, steps))
     total = steps.sum()
     if total == 0:
         return {"temporal_sparsity": 0.0, "capacity_overflow_rate": 0.0,
@@ -80,3 +79,10 @@ def measured_sparsity(tel: TelemetryState,
         "capacity_overflow_rate": float(ovf.sum() / total),
         "mean_active_columns": float(nnz.sum() / total),
     }
+
+
+def measured_sparsity(tel: TelemetryState,
+                      n_cols: Sequence[int]) -> Dict[str, float]:
+    """Fetch the accumulators (the one host fetch of the telemetry path)
+    and reduce them with `summarize`."""
+    return summarize(*(a.detach().cpu().numpy() for a in tel), n_cols)

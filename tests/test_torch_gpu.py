@@ -320,3 +320,238 @@ def test_engine_refuses_tf32_head(cuda):
             SpartusEngine(params, cfg, EngineConfig(), device=cuda)
     finally:
         torch.backends.cuda.matmul.allow_tf32 = saved
+
+
+def _stream_model(cuda, route):
+    cfg = lstm_am.LSTMAMConfig(input_dim=20, hidden_dim=64, n_layers=2,
+                               n_classes=11)
+    params = lstm_am.cbtd_prune_stacks(
+        lstm_am.init_params(_gen(1), cfg, device="cpu"), gamma=0.75, m=8)
+    return BatchedSpartusEngine(params, cfg, EngineConfig(
+        theta=0.05, gamma=0.75, m=8, spmv_path=route), device=cuda)
+
+
+@pytest.mark.parametrize("route", ["scatter", "dense"])
+@pytest.mark.parametrize("offload", [True, False])
+def test_async_server_on_card_matches_serve_requests(cuda, route, offload):
+    """Drip-fed clients through the async server on the card: the
+    streamed partials are the result bit for bit, and the result is
+    serve_requests' on the card within 1e-5."""
+    import asyncio
+
+    from repro_torch.serving import AsyncSpartusServer, StreamRequest
+
+    engine = _stream_model(cuda, route)
+    rng = np.random.default_rng(2)
+    feats = [rng.standard_normal((t, 20)).astype(np.float32)
+             for t in (17, 5, 30, 9, 23)]
+
+    async def client(srv, f, seed):
+        r = np.random.default_rng(seed)
+        h = await srv.stream(want_partials=True)
+        j = 0
+        while j < len(f):
+            n = int(r.integers(1, 6))
+            await h.send(f[j:j + n])
+            j += n
+            await asyncio.sleep(0)
+        h.close()
+        parts = [p async for p in h]
+        return parts, await h.result()
+
+    async def run():
+        async with AsyncSpartusServer(engine, 3, chunk_frames=4,
+                                      max_frames=32, partial_queue_len=2,
+                                      offload_ticks=offload) as srv:
+            out = await asyncio.gather(*[client(srv, f, i)
+                                         for i, f in enumerate(feats)])
+            return out, srv.pool.n_active
+
+    out, n_active = asyncio.run(run())
+    sync, _ = serve_requests(engine, [StreamRequest(i, 0, f)
+                                      for i, f in enumerate(feats)], 3,
+                             chunk_frames=4)
+    assert n_active == 0
+    for (parts, res), ref in zip(out, sync):
+        np.testing.assert_array_equal(
+            np.concatenate([p.rows for p in parts]), res.logits)
+        np.testing.assert_allclose(res.logits, ref.logits, atol=1e-5)
+
+
+class _NoSync:
+    """torch's sync debug mode at "error" while active: any blocking copy
+    or synchronize raises (event waits, the tick's only waits, do not)."""
+
+    def __enter__(self):
+        torch.cuda.set_sync_debug_mode("error")
+
+    def __exit__(self, *exc):
+        torch.cuda.set_sync_debug_mode(0)
+
+
+@pytest.mark.parametrize("route", ["scatter", "dense"])
+def test_pool_boundaries_on_card_never_sync(cuda, route):
+    """The gpu twin of the CPU pin: with observability and partials on, a
+    pool's boundaries on the card (admissions, appends, ``tick`` with
+    its dispatch, retirements and observability fold, the staged
+    backfill, ``staged_sparsity``, the engine's telemetry totals) make no
+    blocking copy or synchronize, and the streamed blocks, a backfill
+    among them, still concatenate to each result bit for bit."""
+    from repro_torch.serving import PoolObservability, SessionPool
+
+    engine = _stream_model(cuda, route)
+    rng = np.random.default_rng(8)
+    feats = [rng.standard_normal((t, 20)).astype(np.float32)
+             for t in (30, 17, 45)]
+    pool = SessionPool(engine, 3, max_frames=8, chunk_frames=4,
+                       stream_partials=True,
+                       observability=PoolObservability())
+    warm = SessionPool(engine, 3, max_frames=8, chunk_frames=4,
+                       stream_partials=True,
+                       observability=PoolObservability())
+    assert warm.admit_stream(99, 0, feats=feats[0][:9])
+    warm.finish_stream(99)
+    while warm.n_active or warm.has_pending:
+        warm.tick(0)
+        warm.take_partials()
+    sent, out, parts, now, ticks, backfilled = [3, 3, 3], {}, [], 0, 0, 0
+    with _NoSync():
+        for rid, f in enumerate(feats):
+            assert pool.admit_stream(rid, 0, feats=f[:3])
+        while len(out) < len(feats):
+            for rid, f in enumerate(feats):
+                if rid in pool._by_req and sent[rid] < len(f):
+                    pool.append_frames(rid, f[sent[rid]:sent[rid] + 5])
+                    sent[rid] = min(len(f), sent[rid] + 5)
+                    if sent[rid] == len(f):
+                        pool.finish_stream(rid)
+            fin, adv = pool.tick(now)
+            out.update({r.req_id: r.logits for r in fin})
+            now += max(adv, 1)
+            parts += pool.take_partials()
+            ticks += 1
+            if ticks == 1:
+                pool.pause_partials(1)
+            if ticks == 4:
+                got = sum(p.rows.shape[0] for p in parts if p.req_id == 1)
+                backfilled = pool.backfill_partials(1, got)
+            pool.staged_sparsity()
+            engine.telemetry_totals(pool.state)
+        parts += pool.take_partials()
+    assert backfilled > 4
+    assert pool.staged_sparsity() == pool.measured_sparsity()
+    for rid in range(len(feats)):
+        mine = sorted((p for p in parts if p.req_id == rid),
+                      key=lambda p: p.t0)
+        assert np.array_equal(np.concatenate([p.rows for p in mine]),
+                              out[rid])
+
+
+def test_async_server_on_card_never_syncs(cuda):
+    """The async server with ticks offloaded, a slow consumer backfilled
+    and ``stats()`` read mid-run makes no blocking copy or synchronize
+    anywhere (loop or worker); the stream is still the result bit for
+    bit and serve_requests' on the card within 1e-5."""
+    import asyncio
+
+    from repro_torch.serving import AsyncSpartusServer, StreamRequest
+
+    engine = _stream_model(cuda, "scatter")
+    rng = np.random.default_rng(9)
+    feats = [rng.standard_normal((t, 20)).astype(np.float32)
+             for t in (48, 11, 26)]
+    serve_requests(engine, [StreamRequest(0, 0, feats[1])], 2,
+                   chunk_frames=2)                    # warm-up
+
+    async def run():
+        async with AsyncSpartusServer(engine, 2, chunk_frames=2,
+                                      max_frames=64, partial_queue_len=3,
+                                      offload_ticks=True) as srv:
+            others = [asyncio.ensure_future(srv.submit(f))
+                      for f in feats[1:]]
+            h = await srv.stream(want_partials=True)
+            for j in range(0, 48, 4):
+                await h.send(feats[0][j:j + 4])
+                await asyncio.sleep(0.001)
+            for _ in range(5000):
+                if h.req_id in srv._lagging:
+                    break
+                await asyncio.sleep(0.002)
+            mid = srv.stats()
+            parts = [await h.__anext__() for _ in range(2)]
+            await asyncio.sleep(0.05)
+            h.close()
+            parts += [p async for p in h]
+            return parts, await h.result(), await asyncio.gather(*others), \
+                mid
+
+    with _NoSync():
+        parts, result, others, mid = asyncio.run(run())
+    np.testing.assert_array_equal(np.concatenate([p.rows for p in parts]),
+                                  result.logits)
+    assert max(p.rows.shape[0] for p in parts) > 2
+    assert mid.n_dispatches > 0
+    sync, _ = serve_requests(engine, [StreamRequest(i, 0, f)
+                                      for i, f in enumerate(feats)], 2,
+                             chunk_frames=2)
+    for got, ref in zip([result] + others, sync):
+        np.testing.assert_allclose(got.logits, ref.logits, atol=1e-5)
+
+
+def test_pinned_fetch_matches_cpu_copy(cuda):
+    """The staged device-to-host copy (pinned buffer, non-blocking, one
+    event) returns exactly what a blocking .cpu() of the same rows does,
+    also when the source is overwritten right after the copy is
+    enqueued — the copy is ordered before the overwrite."""
+    from repro_torch._device import HostCopy, upload
+
+    src = torch.randn((16, 320, 41), generator=_gen(7)).to(cuda)
+    want = src.cpu()
+    slots = torch.tensor([3, 0, 11], device=cuda)
+    fetch = HostCopy(src.index_select(0, slots)[:, :200], src[5])
+    src.fill_(float("nan"))                         # the next chunk
+    got_rows, got_row = fetch.wait()
+    assert got_rows.is_pinned() and got_row.is_pinned()
+    assert torch.equal(got_rows, want[[3, 0, 11], :200])
+    assert torch.equal(got_row, want[5])
+    back = upload(np.arange(12, dtype=np.int32), cuda)
+    assert back.device.type == "cuda"
+    assert torch.equal(back.cpu(), torch.arange(12, dtype=torch.int32))
+
+
+def test_pool_snapshot_restore_on_card_is_bit_identical(cuda):
+    """Sessions snapshotted mid-stream out of a pool on the card and
+    restored into a larger one finish with the uninterrupted run's
+    logits exactly."""
+    from repro_torch.serving import SessionPool, restore_into
+
+    engine = _stream_model(cuda, "scatter")
+    rng = np.random.default_rng(5)
+    feats = [rng.standard_normal((t, 20)).astype(np.float32)
+             for t in (13, 7, 21)]
+
+    def drive(pool, now=0):
+        out = {}
+        while pool.n_active or pool.has_pending:
+            fin, adv = pool.tick(now)
+            out.update({r.req_id: r.logits for r in fin})
+            now += max(adv, 1)
+        return out
+
+    ref_pool = SessionPool(engine, 3, max_frames=32, chunk_frames=4)
+    for i, f in enumerate(feats):
+        assert ref_pool.admit_stream(i, 0, feats=f)
+        ref_pool.finish_stream(i)
+    ref = drive(ref_pool)
+    pool = SessionPool(engine, 3, max_frames=32, chunk_frames=4)
+    for i, f in enumerate(feats):
+        assert pool.admit_stream(i, 0, feats=f[:6])
+    pool.tick(0)
+    big = SessionPool(engine, 6, max_frames=32, chunk_frames=4)
+    restore_into(big, pool.snapshot())
+    for i, f in enumerate(feats):
+        big.append_frames(i, f[6:])
+        big.finish_stream(i)
+    got = drive(big, now=4)
+    for i in range(3):
+        assert np.array_equal(got[i], ref[i]), i

@@ -87,3 +87,42 @@ def test_engines_raise_without_a_card(no_cuda, engine_cls):
         lstm_am.init_params(torch.Generator().manual_seed(0), cfg)
     assert engine_cls(params, cfg, EngineConfig(m=4),
                       device="cpu").device.type == "cpu"
+
+
+def test_async_server_and_pool_run_only_where_asked(no_cuda):
+    """AsyncSpartusServer has no device of its own: it serves on its
+    engine's, which defaults to the card and refuses to build without
+    one; given an engine on the CPU it serves there."""
+    import asyncio
+
+    import numpy as np
+
+    from repro_torch.serving import AsyncSpartusServer
+
+    cfg = lstm_am.LSTMAMConfig(input_dim=6, hidden_dim=8, n_layers=1,
+                               n_classes=3)
+    params = lstm_am.init_params(torch.Generator().manual_seed(0), cfg,
+                                 device="cpu")
+    with pytest.raises(RuntimeError, match="CUDA"):
+        AsyncSpartusServer(BatchedSpartusEngine(params, cfg,
+                                                EngineConfig(m=4)), 2)
+    engine = BatchedSpartusEngine(params, cfg, EngineConfig(m=4),
+                                  device="cpu")
+
+    async def run():
+        async with AsyncSpartusServer(engine, 2, chunk_frames=4) as srv:
+            return await srv.submit(np.ones((5, 6), np.float32))
+
+    assert asyncio.run(run()).logits.shape == (5, 3)
+
+
+def test_launcher_exits_naming_the_missing_card():
+    env = dict(os.environ, PYTHONPATH=str(REPO / "src"),
+               CUDA_VISIBLE_DEVICES="")
+    proc = subprocess.run(
+        [sys.executable, "-m", "repro_torch.launch.serve", "--spartus",
+         "--async", "--hidden", "8", "--clients", "1"],
+        env=env, capture_output=True, text=True, timeout=120)
+    assert proc.returncode != 0
+    assert "CUDA" in proc.stderr and "--device cpu" in proc.stderr
+    assert "served" not in proc.stdout
