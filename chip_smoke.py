@@ -39,8 +39,9 @@ Phases; any failure exits non-zero before a result line is printed:
    order on the two, compounded through two recurrent layers), and that
    every kernel of the route was launched, counting the pool's launches
    and the batch-1 engine's apart.  Then the cost of the float64
-   dense-mirror GEMM against a plain fp32 ``torch.matmul`` (``mirror_cost``)
-   and a profile of one wave per route (device launches per layer-frame,
+   dense-mirror GEMM against a plain fp32 ``torch.matmul``, and of the
+   int8 pack's dense route, which widens its mirror every call
+   (``mirror_cost``), and a profile of one wave per route (device launches per layer-frame,
    busy time, idle share).
 4. Streaming front-end at full width: ``AsyncSpartusServer`` over the
    same model (theta=0.3) on the dense-mirror and scatter routes,
@@ -59,14 +60,27 @@ Phases; any failure exits non-zero before a result line is printed:
    undisturbed run bit for bit.  The timed run is made with torch's
    sync debug mode at "error": a blocking copy or synchronize anywhere
    on the served path fails it.  The admin endpoint's healthz, stats,
-   metrics and timeseries are scraped mid-run, and the launcher runs as
-   a subprocess (``python -m repro_torch.launch.serve --spartus --async
-   --pool 16 --chunk-frames 16 --clients 8 --hidden 1024``).  Prints
-   frames/s, latency p50/p99, first-logit p50, queue-wait p95,
-   dispatches per frame, ``host_overlap_frac`` and ``tick()`` wall time,
-   split into the dispatch's host time, the fetch's wait and the
-   observability fold, beside each chunk's device span.
-5. Prints ``{"kernels": [...]}`` and then, as the last line,
+   metrics and timeseries are scraped mid-run.  Prints frames/s, latency
+   p50/p99, first-logit p50, queue-wait p95, dispatches per frame,
+   ``host_overlap_frac`` and ``tick()`` wall time, split into the
+   dispatch's host time, the fetch's wait and the observability fold,
+   beside each chunk's device span.  Then the launcher runs as a
+   subprocess in both its modes (``python -m repro_torch.launch.serve
+   --spartus --async --pool 16 --chunk-frames 16 --clients 8 --hidden
+   1024``, and ``--spartus --pool 4 --requests 8 --chunk-frames 16``,
+   which trains at its default width before it serves).
+5. Training at full width: ``pretrain_retrain`` of ``LSTM_2L_1024H`` on
+   the card (batch 16 of 64-frame synthetic utterances, CBTD
+   gamma=0.9375, M=64, 3 pretrain epochs at delta_alpha 0.5 so that the
+   last runs at alpha = 1, then 1 DeltaLSTM retrain epoch at theta=0.3,
+   5 steps each).  Checks a falling loss and the pretrain's weight
+   sparsity (0.9375 +- 0.01 on ``w_x``, ``w_h``, ``fcl/w``), prints the
+   step time, then serves the trained weights unscaled on the "auto" and
+   scatter routes (phase 3's requests) and one utterance on the batch-1
+   engine per route: pool vs batch-1 (1e-5), logits not all zero and
+   changing across frames, temporal sparsity in (0, 1), the pack's
+   overflow, launches counted as path ``trained``.
+6. Prints ``{"kernels": [...]}`` and then, as the last line,
    ``{"ok": true, "device": {...}}``.
 
 It imports nothing of JAX and nothing of the JAX package ``repro``.
@@ -99,6 +113,9 @@ N_STREAM_CLIENTS, MAX_BLOCK, PARTIAL_QUEUE_LEN = 32, 32, 2
 CANCELLED_CLIENTS, SLOW_CLIENT = (5, 17), 9
 STREAM_ROUTES = ("auto", "scatter")
 LAUNCHER_TIMEOUT_S = 300
+TRAIN_BATCH, TRAIN_FRAMES, TRAIN_STEPS_PER_EPOCH = 16, 64, 5
+PRETRAIN_EPOCHS, RETRAIN_EPOCHS, DELTA_ALPHA = 3, 1, 0.5
+TRAINED_ROUTES = ("auto", "scatter")
 
 
 class SmokeFailure(RuntimeError):
@@ -553,7 +570,7 @@ def serving_runs(torch, params, am_cfg, rng, out_dir: Path):
         report.append(entry)
     (out_dir / "chip_smoke_serving.json").write_text(
         json.dumps(report, indent=1))
-    return launches, requests
+    return launches, requests, report
 
 
 def mirror_cost(torch, params, am_cfg, requests, seed: int, out_dir: Path):
@@ -566,8 +583,16 @@ def mirror_cost(torch, params, am_cfg, requests, seed: int, out_dir: Path):
     the B=16 product and the same row computed alone.  End to end: the
     dense route served with the port's float64 mirror and with an fp32
     mirror and matmul swapped in (runs in the order f64, fp32, fp32,
-    f64), and the fp32 pool's gap to the fp32 batch-1 engine."""
+    f64), and the fp32 pool's gap to the fp32 batch-1 engine.
+
+    The int8 pack's dense route (what the 2x1024 model takes under
+    ``launch/serve.py --quant``): its mirror is stored int8 and widened
+    to float64 on every call.  Op level: the product, the widening alone
+    and the whole capacity-clip + product route at layer 2, B=16, and the
+    bytes each call widens; end to end: the route served, checked pool
+    vs batch-1 (1e-5)."""
     from repro_torch import serving as rt
+    from repro_torch.core import QuantConfig
     from repro_torch.kernels import ops
 
     ecfg = rt.EngineConfig(theta=am_cfg.theta, gamma=GAMMA, m=M)
@@ -589,6 +614,41 @@ def mirror_cost(torch, params, am_cfg, requests, seed: int, out_dir: Path):
     for name, fn in gemms.items():
         op[name] = {"ms": time_ms(torch, lambda: fn(ds)),
                     "row0_b16_vs_b1": max_err(fn(ds)[0], fn(ds[:1])[0])}
+
+    qcfg = rt.EngineConfig(theta=am_cfg.theta, gamma=GAMMA, m=M,
+                           quant=QuantConfig())
+    qengine = rt.BatchedSpartusEngine(params, am_cfg, qcfg)
+    qlayer = qengine.layers[1]
+    w8, scale, cap = qlayer.w_dense_t, qlayer.scale, qlayer.capacity
+    check(w8 is not None and w8.dtype == torch.int8,
+          "the int8 pack's layer-2 mirror is not int8")
+    product = lambda: ops._mirror_matmul(ds, w8)  # noqa: E731
+    op["int8_widened_per_call"] = {
+        "ms": time_ms(torch, product),
+        "device_ms": device_ms(torch, product, ""),
+        "widen_ms": time_ms(torch, lambda: w8.to(torch.float64)),
+        "widen_bytes_per_call": w8.numel() * 8,
+        "route_ms": time_ms(torch, lambda: ops.delta_spmv_dense_topk_batch(
+            w8, ds, cap, scale=scale)),
+        "row0_b16_vs_b1": max_err(product()[0],
+                                  ops._mirror_matmul(ds[:1], w8)[0])}
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    q_results, q_stats = rt.serve_requests(qengine, requests, CAPACITY,
+                                           chunk_frames=CHUNK_FRAMES)
+    q_wall = time.perf_counter() - t0
+    q_b1 = rt.SpartusEngine(params, am_cfg, qcfg)
+    q_err = max(float(np.abs(q_results[i].logits - q_b1.run_utterance(
+        requests[i].feats).cpu().numpy()).max()) for i in range(2))
+    check(q_err <= TOL_POOL_VS_BATCH1,
+          f"int8 dense route: pool vs batch-1 max err {q_err}")
+    int8_route = {"dense_mirror_layers": [l.w_dense_t is not None
+                                          for l in qengine.layers],
+                  "wall_s": q_wall,
+                  "frames_per_s": q_stats.total_frames / q_wall,
+                  "max_memory_allocated": torch.cuda.max_memory_allocated(),
+                  "pool_vs_batch1_max_err": q_err}
 
     fp32_mirror = lambda ds_, w: ds_ @ w         # noqa: E731
     saved = ops._mirror_matmul
@@ -622,7 +682,8 @@ def mirror_cost(torch, params, am_cfg, requests, seed: int, out_dir: Path):
             ops._mirror_matmul = saved
 
     runs = [serve(fp32) for fp32 in (False, True, True, False)]
-    report = {"op_layer2_b16": op, "serve_dense_route": runs}
+    report = {"op_layer2_b16": op, "serve_dense_route": runs,
+              "serve_int8_dense_route": int8_route}
     (out_dir / "chip_smoke_mirror.json").write_text(
         json.dumps(report, indent=1))
     print(f"mirror gemm: {json.dumps(report)}", flush=True)
@@ -1058,6 +1119,206 @@ def streaming_runs(torch, params, am_cfg, rng, out_dir: Path):
     return launches, report
 
 
+# -- phase 5: training at full width -----------------------------------------
+
+
+def group_sparsity(params, name: str) -> float:
+    """Zero fraction over the leaves named ``name`` (``w_x``, ``w_h``:
+    every LSTM layer's; ``fcl/w``)."""
+    if name == "fcl/w":
+        leaves = [params["fcl"]["w"]]
+    else:
+        leaves = [lp[name] for lp in params["lstm"]]
+    zeros = sum(int((w == 0).sum()) for w in leaves)
+    return zeros / sum(w.numel() for w in leaves)
+
+
+def train_phase(torch, seed: int):
+    """``pretrain_retrain`` of ``LSTM_2L_1024H`` into its DeltaLSTM at
+    theta=0.3 (``DELTA_LSTM_2L_1024H``): CBTD gamma=0.9375, M=64, batch 16
+    of 64-frame synthetic utterances, 3 pretrain epochs at delta_alpha 0.5
+    (the last at alpha = 1, where the deterministic CBTD prunes) and 1
+    retrain epoch.  Checks a falling loss and the pretrain's weight
+    sparsity on ``w_x``, ``w_h`` and ``fcl/w``; returns the report and the
+    retrained params and model config."""
+    from repro_torch.configs.spartus_lstm import (
+        DELTA_LSTM_2L_1024H, LSTM_2L_1024H)
+    from repro_torch.data.speech import SpeechConfig
+    from repro_torch.training.trainer import TrainConfig, pretrain_retrain
+
+    cfg = TrainConfig(model=LSTM_2L_1024H,
+                      data=SpeechConfig(max_frames=TRAIN_FRAMES),
+                      batch_size=TRAIN_BATCH,
+                      steps_per_epoch=TRAIN_STEPS_PER_EPOCH,
+                      cbtd_gamma=GAMMA, cbtd_m=M,
+                      cbtd_delta_alpha=DELTA_ALPHA, seed=seed)
+    pre, post, rcfg = pretrain_retrain(
+        cfg, PRETRAIN_EPOCHS, RETRAIN_EPOCHS,
+        theta=DELTA_LSTM_2L_1024H.theta, device="cuda")
+    check(rcfg.model == DELTA_LSTM_2L_1024H,
+          f"retrained into {rcfg.model}, not DELTA_LSTM_2L_1024H")
+    losses = pre.losses + post.losses
+    check(all(np.isfinite(losses)), f"non-finite training loss: {losses}")
+    first = float(np.mean(pre.losses[:TRAIN_STEPS_PER_EPOCH]))
+    last = float(np.mean(post.losses[-TRAIN_STEPS_PER_EPOCH:]))
+    check(last < first, f"training loss did not fall: {first} -> {last}")
+    sparsity = {name: group_sparsity(pre.params, name)
+                for name in ("w_x", "w_h", "fcl/w")}
+    for name, ws in sparsity.items():
+        check(abs(ws - GAMMA) <= 0.01,
+              f"pretrain weight sparsity of {name} is {ws}, not {GAMMA}")
+    # the first step of each phase carries one-off set-up (cuBLAS
+    # handles, allocator growth): the medians leave it out
+    pre_ms = float(np.median(pre.step_s[1:])) * 1e3
+    post_ms = float(np.median(post.step_s[1:])) * 1e3
+    report = {
+        "model": cfg.model.name, "retrained": rcfg.model.name,
+        "theta": rcfg.model.theta, "batch": TRAIN_BATCH,
+        "frames": TRAIN_FRAMES, "steps": [pre.steps, post.steps],
+        "loss_first_epoch_mean": first, "loss_last_epoch_mean": last,
+        "pretrain_losses": pre.losses, "retrain_losses": post.losses,
+        "pretrain_weight_sparsity": sparsity,
+        "pretrain_step_ms_median": pre_ms,
+        "retrain_step_ms_median": post_ms,
+        "pretrain_steps_per_s": 1e3 / pre_ms,
+        "retrain_steps_per_s": 1e3 / post_ms,
+        "first_step_ms": [pre.step_s[0] * 1e3, post.step_s[0] * 1e3],
+        "wall_s": pre.wall_s + post.wall_s,
+    }
+    report["step_profile"] = profile_train_steps(
+        torch, post.params, {"pretrain": cfg, "retrain": rcfg})
+    return report, post.params, rcfg.model
+
+
+def profile_train_steps(torch, params, cfgs):
+    """One ``train_step`` of each phase's config on ``params`` under
+    torch.profiler, after one untimed step: the step's wall time (ending
+    in the loss fetch), device busy time and idle share, device launches
+    and the kernels that take the most device time."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch._device import upload
+    from repro_torch.data.speech import SpeechDataset
+    from repro_torch.training.optimizer import adamw_init
+    from repro_torch.training.trainer import make_train_step
+
+    out = {}
+    for label, cfg in cfgs.items():
+        dev = params["fcl"]["w"].device
+        batch = tuple(upload(t.numpy(), dev) for t in next(
+            SpeechDataset(cfg.data, cfg.batch_size)))
+        step = make_train_step(cfg)
+        float(step(params, adamw_init(params), batch, 1.0)[2]["loss"])
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            float(step(params, adamw_init(params), batch, 1.0)[2]["loss"])
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        kernels = sorted(((e.key, self_device_us(e) / 1e6, e.count)
+                          for e in prof.key_averages()
+                          if self_device_us(e) > 0), key=lambda r: -r[1])
+        busy = sum(t for _, t, _ in kernels)
+        out[label] = {
+            "wall_s": wall, "device_busy_s": busy,
+            "device_idle_share": 1.0 - busy / wall,
+            "device_launches": sum(n for _, _, n in kernels),
+            "by_kernel": [{"name": k[:90], "device_s": t, "count": n}
+                          for k, t, n in kernels[:8]]}
+    return out
+
+
+def serve_trained(torch, params, am_cfg, requests, counters):
+    """Phase 5's serving leg: the retrained weights, unscaled, through
+    ``serve_requests`` on the "auto" and scatter routes (phase 3's
+    requests) and one utterance through the batch-1 ``SpartusEngine`` on
+    each route.  Checks pool vs batch-1 (1e-5), finite logits that are not
+    all zero and change across frames, and a temporal sparsity strictly
+    between 0 and 1; counts every kernel's launches over the leg."""
+    from repro_torch import serving as rt
+
+    for kern in counters.values():
+        kern.launches = 0
+    routes = []
+    for route in TRAINED_ROUTES:
+        ecfg = rt.EngineConfig(theta=am_cfg.theta, gamma=GAMMA, m=M,
+                               spmv_path=route)
+        engine = rt.BatchedSpartusEngine(params, am_cfg, ecfg)
+        t0 = time.perf_counter()
+        results, stats = rt.serve_requests(engine, requests, CAPACITY,
+                                           chunk_frames=CHUNK_FRAMES)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        b1 = rt.SpartusEngine(params, am_cfg, ecfg).run_utterance(
+            requests[0].feats).cpu().numpy()
+        check(len(results) == len(requests) and not stats.truncated,
+              f"trained {route}: {len(results)} of {len(requests)} served")
+        for r, req in zip(results, requests):
+            check(r.logits.shape == (req.n_frames, am_cfg.n_classes)
+                  and np.isfinite(r.logits).all(),
+                  f"trained {route}: request {r.req_id} logits malformed")
+        check(all(np.abs(r.logits).max() > 0 for r in results),
+              f"trained {route}: some request's logits are all zero")
+        check(all(np.abs(np.diff(r.logits, axis=0)).max() > 0
+                  for r in results),
+              f"trained {route}: some request's logits never change")
+        err_b1 = float(np.abs(results[0].logits - b1).max())
+        check(err_b1 <= TOL_POOL_VS_BATCH1,
+              f"trained {route}: pool vs batch-1 max err {err_b1}")
+        ts = stats.sparsity["temporal_sparsity"]
+        check(0.0 < ts < 1.0,
+              f"trained {route}: temporal sparsity {ts} not in (0, 1)")
+        routes.append({
+            "route": route,
+            "dense_mirror_layers": [l.w_dense_t is not None
+                                    for l in engine.layers],
+            "frames": stats.total_frames, "wall_s": wall,
+            "frames_per_s": stats.total_frames / wall,
+            "temporal_sparsity": ts,
+            "capacity_overflow_rate": stats.sparsity[
+                "capacity_overflow_rate"],
+            "weight_sparsity": engine.weight_sparsity(),
+            "pack_overflow": engine.pack_overflow_count(),
+            "logits_abs_max": max(float(np.abs(r.logits).max())
+                                  for r in results),
+            "pool_vs_batch1_max_err": err_b1,
+        })
+    torch.cuda.synchronize()
+    launches = {name: kern.launches for name, kern in counters.items()}
+    for name, n in launches.items():
+        check(n > 0, f"trained: {name} never launched serving the trained "
+                     f"weights")
+    return routes, launches
+
+
+def training_runs(torch, requests, random_ts, seed: int, out_dir: Path):
+    """Phase 5: train at full width on the card, then serve the trained
+    weights through the kernels, reporting each route's temporal sparsity
+    beside the one phase 3's scaled random network reached on it
+    (``random_ts``, by route).  Returns the launches per kernel."""
+    from repro_torch.kernels import delta_encode as de
+    from repro_torch.kernels import lstm_pointwise as lp
+    from repro_torch.kernels import stsp_spmv as sp
+
+    counters = {"delta_encode": de.KERNEL, "lstm_pointwise": lp.KERNEL,
+                "stsp_spmv_scatter_batch": sp.SCATTER_BATCH_KERNEL,
+                "stsp_spmv": sp.KERNEL}
+    report, params, am_cfg = train_phase(torch, seed)
+    report["device"] = nvidia_smi()
+    brief = {k: v for k, v in report.items() if not k.endswith("_losses")}
+    print(f"train: {json.dumps(brief)}", flush=True)
+    routes, launches = serve_trained(torch, params, am_cfg, requests,
+                                     counters)
+    for entry in routes:
+        entry["random_net_temporal_sparsity"] = random_ts.get(entry["route"])
+        print(f"trained serve {entry['route']}: {json.dumps(entry)}",
+              flush=True)
+    report.update(serving=routes, launches=launches)
+    (out_dir / "chip_smoke_train.json").write_text(json.dumps(report,
+                                                              indent=1))
+    return launches
+
+
 def boundary_costs(torch, rt, engine, requests, observability=None):
     """Serve ``requests`` (all arriving at once) through one chunked pool
     with ``serve_requests``' loop, ``step_chunk`` instrumented; returns
@@ -1119,24 +1380,37 @@ def boundary_only(torch, args) -> int:
 
 
 def launcher_run():
-    """The launcher as its users start it, as a subprocess with a time
-    limit; returns its last lines."""
+    """The launcher as its users start it, as subprocesses with a time
+    limit: the ``--async`` TCP front-end at hidden 1024, then the
+    synchronous mode, which trains at its default hidden width before it
+    serves a pool; returns their ``[serve]`` lines."""
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
-    cmd = [sys.executable, "-m", "repro_torch.launch.serve", "--spartus",
-           "--async", "--pool", "16", "--chunk-frames", "16", "--clients",
-           "8", "--hidden", "1024", "--admin-port", "0"]
-    try:
-        proc = subprocess.run(cmd, env=env, capture_output=True, text=True,
-                              timeout=LAUNCHER_TIMEOUT_S, cwd=ROOT)
-    except subprocess.TimeoutExpired:
-        raise SmokeFailure(f"launcher did not exit within "
-                           f"{LAUNCHER_TIMEOUT_S} s")
-    check(proc.returncode == 0 and "8 concurrent TCP clients served"
-          in proc.stdout,
-          f"launcher exit {proc.returncode}: {proc.stderr[-2000:]}")
-    lines = [l for l in proc.stdout.splitlines() if l.startswith("[serve]")]
-    for line in lines:
-        print(f"launcher: {line}", flush=True)
+    runs = (
+        (["--async", "--pool", "16", "--chunk-frames", "16", "--clients",
+          "8", "--hidden", "1024", "--admin-port", "0"],
+         ["8 concurrent TCP clients served"]),
+        (["--pool", "4", "--requests", "8", "--chunk-frames", "16"],
+         ["[serve] pool(4, chunked x16): 8 sessions", "pack overflow",
+          "modelled Spartus latency"]),
+    )
+    lines = []
+    for args, expect in runs:
+        cmd = [sys.executable, "-m", "repro_torch.launch.serve",
+               "--spartus", *args]
+        try:
+            proc = subprocess.run(cmd, env=env, capture_output=True,
+                                  text=True, timeout=LAUNCHER_TIMEOUT_S,
+                                  cwd=ROOT)
+        except subprocess.TimeoutExpired:
+            raise SmokeFailure(f"launcher {' '.join(args)} did not exit "
+                               f"within {LAUNCHER_TIMEOUT_S} s")
+        check(proc.returncode == 0 and all(e in proc.stdout for e in expect),
+              f"launcher {' '.join(args)}: exit {proc.returncode}: "
+              f"{proc.stdout[-1000:]} {proc.stderr[-2000:]}")
+        for line in proc.stdout.splitlines():
+            if line.startswith("[serve]"):
+                print(f"launcher: {line}", flush=True)
+                lines.append(line)
     return lines
 
 
@@ -1209,7 +1483,7 @@ def main() -> int:
                   f"{case.get('glue_device_ms')}", flush=True)
 
     # phase 3: serving at full width
-    launches, requests = serving_runs(torch, params, am_cfg,
+    launches, requests, served = serving_runs(torch, params, am_cfg,
                                       np.random.default_rng(args.seed),
                                       out_dir)
     mirror_cost(torch, params, am_cfg, requests, args.seed, out_dir)
@@ -1219,6 +1493,12 @@ def main() -> int:
     stream_launches, _ = streaming_runs(
         torch, params, am_cfg, np.random.default_rng(args.seed + 1), out_dir)
     launcher_run()
+
+    # phase 5: training at full width, the trained weights served
+    random_ts = {e["route"]: e["sparsity"]["temporal_sparsity"]
+                 for e in served}
+    trained_launches = training_runs(torch, requests, random_ts, args.seed,
+                                     out_dir)
 
     kernels = []
     for name, row in rows.items():
@@ -1230,7 +1510,8 @@ def main() -> int:
             "replaces": row["replaces"], "launches": launches[path][name],
             "launches_by_path": dict(
                 {p: launches[p][name] for p in launches},
-                stream=stream_launches[name]),
+                stream=stream_launches[name],
+                trained=trained_launches[name]),
             "max_abs_err": row["max_abs_err"], "ms": row["ms"],
             "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
             "bound_by": row["bound_by"], "library_ms": row["library_ms"],

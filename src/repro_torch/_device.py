@@ -21,6 +21,16 @@ def resolve_device(device: DeviceLike = None) -> torch.device:
     return dev
 
 
+def require_full_fp32_matmul(device: torch.device) -> None:
+    """Raise if fp32 matmuls on ``device`` would run in TF32: the port's
+    parity checks (pool vs batch-1, card vs host) assume PyTorch's
+    default full-precision fp32 GEMMs."""
+    if device.type == "cuda" and torch.backends.cuda.matmul.allow_tf32:
+        raise RuntimeError(
+            "torch.backends.cuda.matmul.allow_tf32 is on: the port's fp32 "
+            "matmuls must run in full fp32 (PyTorch's default)")
+
+
 def as_tensor(x, dtype: torch.dtype, device: Optional[torch.device]):
     """numpy / list / tensor -> tensor of ``dtype`` on ``device``."""
     if isinstance(x, torch.Tensor):

@@ -5,17 +5,29 @@
 - CBTD structured pruning (spatial sparsity, Sec. III-A/B)
 - CBCSC sparse format (Sec. III-C)
 - fixed-point quantization (Sec. IV-E)
+- sparsity statistics / op accounting (eqs. 9-10, Tables II/IV)
 """
 from repro_torch.core.cbcsc import CBCSC, blen_for, cbcsc_decode, cbcsc_encode
-from repro_torch.core.cbtd import apply_cbtd, cbtd_mask, drop_count, keep_count
+from repro_torch.core.cbtd import (
+    CBTDConfig,
+    alpha_at,
+    apply_cbtd,
+    cbtd_mask,
+    cbtd_prune_tree,
+    cbtd_tile_mask,
+    drop_count,
+    keep_count,
+)
 from repro_torch.core.delta_lstm import (
     DeltaLSTMState,
     delta_lstm_layer,
+    delta_lstm_layer_batched,
     delta_lstm_step,
     delta_threshold,
     init_delta_lstm_state,
     init_lstm_params,
     lstm_layer,
+    lstm_layer_batched,
     lstm_step,
     stacked_weight_matrix,
 )
@@ -24,7 +36,22 @@ from repro_torch.core.quantization import (
     fake_quant_act_ste,
     fake_quant_ste,
     int8_pack,
+    int8_unpack,
     pow2_scale_for,
     quantize,
     quantize_act,
+    quantize_tree,
+)
+from repro_torch.core.stats import (
+    balance_ratio,
+    effective_mac_trace,
+    lstm_layer_macs,
+    lstm_layer_ops,
+    model_size_mb,
+    op_saving,
+    sparse_model_size_mb,
+    summarize_delta_aux,
+    temporal_sparsity,
+    tree_weight_sparsity,
+    weight_sparsity,
 )

@@ -147,6 +147,13 @@ def delta_lstm_layer(params: Params, xs: torch.Tensor, theta: float,
     return torch.stack(hs, dim=-2), state, aux
 
 
+# The reference vmaps its single-row layers over a leading batch axis; the
+# port's layers take [..., T, D] already, so the batched names are the same
+# functions.
+lstm_layer_batched = lstm_layer
+delta_lstm_layer_batched = delta_lstm_layer
+
+
 def stacked_weight_matrix(params: Params) -> torch.Tensor:
     """Eq. (8): the [4H, D+H] stacked matrix the accelerator stores."""
     return torch.cat([params["w_x"], params["w_h"]], dim=1)

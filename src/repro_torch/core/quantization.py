@@ -13,6 +13,8 @@ from typing import Optional
 
 import torch
 
+from repro_torch import _tree
+
 
 @dataclasses.dataclass(frozen=True)
 class QuantConfig:
@@ -67,3 +69,19 @@ def int8_pack(w: torch.Tensor, scale: Optional[torch.Tensor] = None):
     q = torch.clamp(torch.round(w / scale), -127, 127).to(torch.int8)
     return q, scale
 
+
+
+def quantize_tree(params, bits: int = 8):
+    """Quantize every floating-point leaf of ndim >= 1 (deployment-time,
+    no STE)."""
+    def q(leaf):
+        if (isinstance(leaf, torch.Tensor) and leaf.is_floating_point()
+                and leaf.ndim >= 1):
+            return quantize(leaf, bits)
+        return leaf
+    return _tree.tree_map(q, params)
+
+
+def int8_unpack(q: torch.Tensor, scale: torch.Tensor,
+                dtype: torch.dtype = torch.float32) -> torch.Tensor:
+    return q.to(dtype) * scale

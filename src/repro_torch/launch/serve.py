@@ -1,7 +1,18 @@
-"""Serving launcher of the port — ``repro/launch/serve.py`` in its
-``--spartus --async`` mode: the asyncio streaming front-end over a
-localhost TCP socket, on the card by default.
+"""Serving launcher of the port — ``repro/launch/serve.py`` in its two
+``--spartus`` modes, on the card by default.
 
+The synchronous mode trains a small CBTD + DeltaLSTM acoustic model with
+the two-phase recipe (``pretrain_retrain``), then serves it: through a
+session pool (``serve_requests``, ``--pool N``) or the batch-1
+``SpartusEngine`` (``--pool 0``), and reports the modelled Spartus
+latency at the measured sparsity (``hwsim.spartus_model``).  The
+``--async`` mode is the asyncio streaming front-end over a localhost TCP
+socket.
+
+    PYTHONPATH=src python -m repro_torch.launch.serve --spartus \
+        --pool 4 --requests 8 --chunk-frames 16
+    PYTHONPATH=src python -m repro_torch.launch.serve --spartus \
+        --hidden 16 --requests 4 --device cpu   # batch-1, plain versions
     PYTHONPATH=src python -m repro_torch.launch.serve --spartus --async \
         --pool 16 --chunk-frames 16 --clients 8 --hidden 1024
     PYTHONPATH=src python -m repro_torch.launch.serve --spartus --async \
@@ -9,9 +20,9 @@ localhost TCP socket, on the card by default.
     PYTHONPATH=src python -m repro_torch.launch.serve --spartus --async \
         --pool 8 --clients 0 --port 8765   # serve forever on :8765
 
-The synchronous ``--spartus`` mode trains its model first, which needs
-the training stack (ROADMAP.md queue 1 item 12), and ``--arch`` needs the
-model zoo (item 14): neither is ported, and both exit with an error.
+``--arch`` needs the model zoo (ROADMAP.md queue 1 item 14) and
+``--devices`` above 1 slot sharding (item 10): neither is ported, and
+both exit with an error.
 
 The --async mode exposes the `AsyncSpartusServer` over a localhost
 TCP socket speaking newline-delimited JSON (one object per line):
@@ -340,6 +351,99 @@ async def demo_client(port, cid, feats, *, max_attempts=6, seed=None):
         f"client {cid}: gave up after {max_attempts} attempts ({last})")
 
 
+def serve_spartus(args):
+    """The synchronous mode: train (``pretrain_retrain``: 2 epochs of CBTD
+    pretrain at delta_alpha 0.5, then 1 DeltaLSTM retrain epoch, 15 steps
+    each, as the reference's launcher), then serve the retrained weights
+    and model the Spartus latency at the sparsity they reach.  As in the
+    reference the deterministic CBTD never reaches alpha = 1 in this
+    recipe, so the model arrives at the pack unpruned and the pack clips
+    it to BLEN: the "pack overflow" count says how many weights that
+    dropped."""
+    import time
+
+    from repro_torch._device import resolve_device
+    from repro_torch.core import QuantConfig
+    from repro_torch.data.speech import SpeechConfig, SpeechDataset
+    from repro_torch.hwsim import spartus_model as hw
+    from repro_torch.models import lstm_am
+    from repro_torch.serving import (
+        BatchedSpartusEngine, EngineConfig, SpartusEngine, StreamRequest,
+        serve_requests,
+    )
+    from repro_torch.training.optimizer import AdamWConfig
+    from repro_torch.training.trainer import TrainConfig, pretrain_retrain
+
+    device = resolve_device(args.device)
+    cfg = TrainConfig(
+        model=lstm_am.LSTMAMConfig(input_dim=123, hidden_dim=args.hidden,
+                                   n_layers=2, n_classes=41),
+        data=SpeechConfig(max_frames=64),
+        opt=AdamWConfig(lr=3e-3), batch_size=8, steps_per_epoch=15,
+        cbtd_gamma=args.gamma, cbtd_m=8, cbtd_delta_alpha=0.5,
+    )
+    print(f"[serve] training a small CBTD+DeltaLSTM AM first on {device} "
+          f"...")
+    pre, post, rcfg = pretrain_retrain(cfg, 2, 1, theta=args.theta,
+                                       device=device)
+    print(f"[serve] trained {pre.steps}+{post.steps} steps: loss "
+          f"{pre.losses[0]:.2f} -> {post.final_loss:.2f}")
+    quant = QuantConfig() if args.quant else None
+    if quant is not None:
+        print("[serve] quantized serving: int8 weights, Q8.8 activations")
+    ecfg = EngineConfig(theta=args.theta, gamma=args.gamma, m=8, quant=quant)
+
+    if args.pool > 0:
+        engine = BatchedSpartusEngine(post.params, rcfg.model, ecfg,
+                                      device=device)
+        n_req = max(args.requests, 1)
+        feats, n_frames, *_ = next(SpeechDataset(cfg.data, n_req))
+        reqs = [
+            StreamRequest(req_id=i, arrival_step=2 * i,
+                          feats=feats[i, :max(int(n_frames[i]), 8)].numpy())
+            for i in range(n_req)
+        ]
+        results, stats = serve_requests(engine, reqs, capacity=args.pool,
+                                        chunk_frames=args.chunk_frames)
+        mode = (f"chunked x{args.chunk_frames}" if args.chunk_frames
+                else "per-frame")
+        print(f"[serve] pool({args.pool}, {mode}): {stats.n_requests} "
+              f"sessions / {stats.total_frames} frames in {stats.wall_s:.2f}s "
+              f"-> {stats.frames_per_s:.0f} frames/s, latency "
+              f"p50 {stats.p50_latency_s*1e3:.0f} ms / "
+              f"p95 {stats.p95_latency_s*1e3:.0f} ms")
+        print(f"[serve] dispatch economy: {stats.n_dispatches} dispatches "
+              f"({stats.dispatches_per_frame:.3f}/frame), host overlap "
+              f"{stats.host_overlap_frac:.0%}")
+        sp = stats.sparsity
+        print(f"[serve] temporal sparsity {sp['temporal_sparsity']:.1%}, "
+              f"weight sparsity {engine.weight_sparsity():.1%} "
+              f"(pack overflow {engine.pack_overflow_count()} clipped), "
+              f"overflow {sp['capacity_overflow_rate']:.1%}")
+        rep = hw.evaluate_from_telemetry(hw.SPARTUS, hw.TEST_LAYER,
+                                         args.gamma, sp)
+        print(f"[serve] modelled Spartus latency at this sparsity: "
+              f"{rep.latency_us:.2f} us "
+              f"({rep.batch1_throughput_gops:.0f} GOp/s effective)")
+        return
+
+    engine = SpartusEngine(post.params, rcfg.model, ecfg, device=device)
+    feats, *_ = next(SpeechDataset(cfg.data, 1))
+    t0 = time.time()
+    engine.run_utterance(feats[0].numpy()).cpu()
+    dt = time.time() - t0
+    sp = engine.measured_sparsity()
+    print(f"[serve] streamed {feats.shape[1]} frames in {dt:.2f}s; "
+          f"temporal sparsity {sp['temporal_sparsity']:.1%}, "
+          f"weight sparsity {engine.weight_sparsity():.1%} "
+          f"(pack overflow {engine.pack_overflow_count()} clipped), "
+          f"overflow {sp['capacity_overflow_rate']:.1%}")
+    rep = hw.evaluate_from_telemetry(hw.SPARTUS, hw.TEST_LAYER, args.gamma, sp)
+    print(f"[serve] modelled Spartus latency for the paper's test layer at "
+          f"this sparsity: {rep.latency_us:.2f} us "
+          f"({rep.batch1_throughput_gops:.0f} GOp/s effective)")
+
+
 def serve_spartus_async(args):
     """--async: the asyncio streaming front-end behind a localhost
     TCP/JSON-lines protocol (see the module docstring), plus optional
@@ -376,6 +480,8 @@ def serve_spartus_async(args):
         device=device)
     capacity = max(args.pool, 1)
     chunk = args.chunk_frames or 8
+    print(f"[serve] weight sparsity {engine.weight_sparsity():.1%} "
+          f"(pack overflow {engine.pack_overflow_count()} clipped)")
 
     async def run():
         obs = PoolObservability(tracer=Tracer(enabled=bool(args.trace)))
@@ -473,10 +579,17 @@ def main(argv=None):
                     help="serve with int8 CBCSC weight payloads and Q8.8 "
                          "delta thresholds")
     ap.add_argument("--pool", type=int, default=0,
-                    help="session-pool capacity (--async uses >= 1)")
+                    help="session-pool capacity (0 = batch-1 engine; "
+                         "--async uses >= 1)")
+    ap.add_argument("--requests", type=int, default=16,
+                    help="number of streaming requests for --pool mode")
     ap.add_argument("--chunk-frames", type=int, default=0,
-                    help="frames advanced per device dispatch (--async "
-                         "defaults to 8)")
+                    help="frames advanced per device dispatch (0 = "
+                         "per-frame ticks; --async defaults to 8)")
+    ap.add_argument("--devices", type=int, default=0,
+                    help="shard the pool's slot dimension over N GPUs: "
+                         "not ported (ROADMAP.md queue 1 item 10); 0 or 1 "
+                         "= one device")
     ap.add_argument("--async", dest="async_mode", action="store_true",
                     help="asyncio streaming front-end over localhost "
                          "TCP/JSON-lines (requires --spartus)")
@@ -510,23 +623,20 @@ def main(argv=None):
                          "answers a retriable typed error with a "
                          "retry_after_ms hint")
     args = ap.parse_args(argv)
-    if args.async_mode:
-        if not args.spartus:
-            ap.error("--async requires --spartus")
-        try:
-            serve_spartus_async(args)
-        except RuntimeError as exc:
-            if "CUDA" not in str(exc):
-                raise
-            sys.exit(f"serve: {exc} (on the launcher: --device cpu)")
-    elif args.spartus:
-        ap.error("--spartus without --async trains its model first: the "
-                 "training stack is not ported (ROADMAP.md queue 1 item "
-                 "12); use --spartus --async")
-    else:
+    if args.devices > 1:
+        ap.error(f"--devices {args.devices}: slot sharding over several "
+                 f"GPUs is not ported (ROADMAP.md queue 1 item 10)")
+    if args.async_mode and not args.spartus:
+        ap.error("--async requires --spartus")
+    if not args.spartus:
         ap.error("--arch serving needs the generic model zoo, which is not "
-                 "ported (ROADMAP.md queue 1 item 14); use --spartus --async")
-
+                 "ported (ROADMAP.md queue 1 item 14); use --spartus")
+    try:
+        (serve_spartus_async if args.async_mode else serve_spartus)(args)
+    except RuntimeError as exc:
+        if "CUDA" not in str(exc):
+            raise
+        sys.exit(f"serve: {exc} (on the launcher: --device cpu)")
 
 if __name__ == "__main__":
     main()

@@ -2,10 +2,12 @@
 of ``repro/models/lstm_am.py``.
 
 LSTM layers, then a fully-connected layer of the same width and a logit
-layer.  ``forward`` is the dense/Delta oracle; ``cbtd_prune_stacks``
-makes a servable column-balanced model; ``params_from_numpy`` brings the
-reference's parameters across (``jax.random`` cannot be reproduced here,
-so the parity tests move weights as numpy arrays).
+layer.  ``forward`` is the dense/Delta oracle and the training forward:
+plain differentiable PyTorch ops that never call the serving kernels.
+``cbtd_prune_stacks`` makes a servable column-balanced model;
+``params_from_numpy`` brings the reference's parameters across
+(``jax.random`` cannot be reproduced here, so the parity tests move
+weights as numpy arrays).
 """
 from __future__ import annotations
 
@@ -16,8 +18,10 @@ from typing import Any, Dict, Tuple
 import numpy as np
 import torch
 
+from repro_torch import _tree
 from repro_torch._device import DeviceLike, resolve_device
 from repro_torch.core import (
+    CBTDConfig,
     QuantConfig,
     apply_cbtd,
     delta_lstm_layer,
@@ -86,6 +90,10 @@ def params_from_numpy(tree: Any, device: DeviceLike = None) -> Any:
     return torch.from_numpy(np.array(tree, copy=True)).to(device)
 
 
+def n_params(params: Params) -> int:
+    return sum(l.numel() for l in _tree.leaves(params))
+
+
 def _maybe_quant_params(params: Params, cfg: LSTMAMConfig) -> Params:
     if not cfg.quant.enabled:
         return params
@@ -141,3 +149,9 @@ def cbtd_prune_stacks(params: Params, gamma: float, m: int) -> Params:
                        "w_h": w[:, d:].contiguous()})
     out["lstm"] = layers
     return out
+
+
+def lstm_weight_layout() -> Dict[str, Any]:
+    """CBTD layout: prune the recurrent stacks + FCL (paper Sec. V-C:
+    'The CBTD was also applied to the FCL'), never the logit layer."""
+    return {"w_x": CBTDConfig(), "w_h": CBTDConfig(), "fcl/w": CBTDConfig()}

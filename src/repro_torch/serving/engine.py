@@ -30,7 +30,12 @@ from typing import Any, Dict, List, Optional, Tuple
 import numpy as np
 import torch
 
-from repro_torch._device import DeviceLike, as_tensor, resolve_device
+from repro_torch._device import (
+    DeviceLike,
+    as_tensor,
+    require_full_fp32_matmul,
+    resolve_device,
+)
 from repro_torch.core import (
     CBCSC, blen_for, cbcsc_decode, cbcsc_encode, int8_pack,
     stacked_weight_matrix,
@@ -153,11 +158,7 @@ class PackedSpartusModel:
                  cfg: EngineConfig = EngineConfig(),
                  device: DeviceLike = None):
         self.device = resolve_device(device)
-        if (self.device.type == "cuda"
-                and torch.backends.cuda.matmul.allow_tf32):
-            raise RuntimeError(
-                "torch.backends.cuda.matmul.allow_tf32 is on: the fc/logit "
-                "head must run in full fp32 (PyTorch's default)")
+        require_full_fp32_matmul(self.device)
         self.cfg = cfg
         self.layers = [pack_lstm_layer(_host(lp), cfg).to(self.device)
                        for lp in am_params["lstm"]]

@@ -1,2 +1,4 @@
-"""Training-side utilities of the port (``checkpoint``: the atomic
-checkpoint manager the serving snapshots ride)."""
+"""Training stack of the port: ``ctc`` (CTC loss, greedy decoding, PER),
+``optimizer`` (AdamW + schedules), ``checkpoint`` (atomic, async,
+retained checkpoints; also what the serving snapshots ride) and
+``trainer`` (the paper's two-phase CBTD pretrain / DeltaLSTM retrain)."""

@@ -1,0 +1,113 @@
+"""Optimizers & schedules — port of ``repro/training/optimizer.py``.
+
+AdamW with global-norm clipping, plus warmup-cosine / linear / constant
+schedules, written out as the reference writes them.  ``torch.optim.AdamW``
+is not used: it places eps and the bias corrections differently, and it
+neither clips nor schedules.  States are trees of tensors like the
+parameters; the step, the learning rate and the norm stay 0-d tensors on
+the parameters' device, so an update never waits on the host.
+"""
+from __future__ import annotations
+
+import dataclasses
+import math
+from typing import Callable, NamedTuple, Optional
+
+import torch
+
+from repro_torch import _tree
+
+
+class AdamState(NamedTuple):
+    step: torch.Tensor    # 0-d int32
+    m: object             # tree like params
+    v: object
+
+
+@dataclasses.dataclass(frozen=True)
+class AdamWConfig:
+    lr: float = 1e-3
+    b1: float = 0.9
+    b2: float = 0.999
+    eps: float = 1e-8
+    weight_decay: float = 0.0
+    clip_norm: Optional[float] = 1.0
+    schedule: str = "constant"      # constant | cosine | linear
+    warmup_steps: int = 0
+    total_steps: int = 10_000
+    min_lr_frac: float = 0.1
+
+
+def schedule_fn(cfg: AdamWConfig) -> Callable[[torch.Tensor], torch.Tensor]:
+    """step (int tensor) -> learning rate (float32 tensor)."""
+    def fn(step):
+        step = torch.as_tensor(step).to(torch.float32)
+        warm = torch.clamp(step / max(cfg.warmup_steps, 1), max=1.0)
+        span = max(cfg.total_steps - cfg.warmup_steps, 1)
+        frac = torch.clamp((step - cfg.warmup_steps) / span, 0.0, 1.0)
+        if cfg.schedule == "constant":
+            decay = 1.0
+        elif cfg.schedule == "cosine":
+            decay = cfg.min_lr_frac + (1 - cfg.min_lr_frac) * 0.5 * (
+                1 + torch.cos(math.pi * frac))
+        elif cfg.schedule == "linear":
+            decay = 1.0 - (1 - cfg.min_lr_frac) * frac
+        else:
+            raise ValueError(cfg.schedule)
+        return cfg.lr * warm * decay
+
+    return fn
+
+
+def global_norm(tree) -> torch.Tensor:
+    return torch.sqrt(torch.stack([
+        torch.sum(torch.square(l.to(torch.float32)))
+        for l in _tree.leaves(tree)]).sum())
+
+
+def clip_by_global_norm(tree, max_norm: float):
+    norm = global_norm(tree)
+    scale = torch.clamp(max_norm / (norm + 1e-9), max=1.0)
+    return _tree.tree_map(lambda g: g * scale, tree), norm
+
+
+def adamw_init(params) -> AdamState:
+    def zeros(p):
+        return torch.zeros_like(p, dtype=torch.float32)
+    device = _tree.leaves(params)[0].device
+    return AdamState(step=torch.zeros((), dtype=torch.int32, device=device),
+                     m=_tree.tree_map(zeros, params),
+                     v=_tree.tree_map(zeros, params))
+
+
+def adamw_update(grads, state: AdamState, params, cfg: AdamWConfig):
+    """Returns (new_params, new_state, metrics)."""
+    if cfg.clip_norm is not None:
+        grads, gnorm = clip_by_global_norm(grads, cfg.clip_norm)
+    else:
+        gnorm = global_norm(grads)
+
+    step = state.step + 1
+    lr = schedule_fn(cfg)(step)
+    step_f = step.to(torch.float32)
+    b1c = 1.0 - torch.pow(cfg.b1, step_f)
+    b2c = 1.0 - torch.pow(cfg.b2, step_f)
+
+    def upd(g, m, v, p):
+        g32 = g.to(torch.float32)
+        m = cfg.b1 * m + (1 - cfg.b1) * g32
+        v = cfg.b2 * v + (1 - cfg.b2) * torch.square(g32)
+        delta = (m / b1c) / (torch.sqrt(v / b2c) + cfg.eps)
+        if cfg.weight_decay:
+            delta = delta + cfg.weight_decay * p.to(torch.float32)
+        return (p.to(torch.float32) - lr * delta).to(p.dtype), m, v
+
+    # trees are matched by leaf path, whatever their dicts' key order
+    g, m, v = (dict(_tree.leaves_with_path(t))
+               for t in (grads, state.m, state.v))
+    out = {path: upd(g[path], m[path], v[path], p)
+           for path, p in _tree.leaves_with_path(params)}
+    new = [_tree.map_with_path(lambda path, _: out[path][i], params)
+           for i in range(3)]
+    return new[0], AdamState(step=step, m=new[1], v=new[2]), {
+        "grad_norm": gnorm, "lr": lr}

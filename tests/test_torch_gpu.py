@@ -555,3 +555,63 @@ def test_pool_snapshot_restore_on_card_is_bit_identical(cuda):
     got = drive(big, now=4)
     for i in range(3):
         assert np.array_equal(got[i], ref[i]), i
+
+
+def _train_case(delta: bool):
+    """A small pretrain (or DeltaLSTM retrain) config, host params and a
+    host batch."""
+    from repro_torch.data.speech import SpeechConfig, SpeechDataset
+    from repro_torch.training.trainer import TrainConfig
+
+    model = lstm_am.LSTMAMConfig(input_dim=123, hidden_dim=64, n_layers=2,
+                                 n_classes=41, delta=delta, theta=0.3)
+    cfg = TrainConfig(model=model, data=SpeechConfig(max_frames=32),
+                      batch_size=4, cbtd_gamma=0.75, cbtd_m=8)
+    params = lstm_am.init_params(_gen(0), model, device="cpu")
+    return cfg, params, next(SpeechDataset(cfg.data, 4))
+
+
+def _to(tree, device):
+    from repro_torch import _tree
+
+    return _tree.tree_map(lambda t: t.to(device), tree)
+
+
+def test_train_step_on_card_matches_host(cuda):
+    """One LSTM pretrain step on the card against the same step on the
+    host: loss, gradients (relative to the largest) and the updated
+    params within 1e-4; then CBTD of the same params on the card is
+    bit-equal to the host's; the DeltaLSTM retrain step, whose thresholds
+    can flip on an ulp, is held by its loss."""
+    from repro_torch import _tree
+    from repro_torch.core import cbtd_prune_tree
+    from repro_torch.core.cbtd import CBTDConfig
+    from repro_torch.training.optimizer import adamw_init
+    from repro_torch.training.trainer import loss_and_grads, make_train_step
+
+    cfg, params, batch = _train_case(delta=False)
+    loss_h, grads_h = loss_and_grads(params, cfg, batch)
+    loss_c, grads_c = loss_and_grads(_to(params, cuda), cfg,
+                                     _to(batch, cuda))
+    assert abs(float(loss_c) - float(loss_h)) <= 1e-4 * abs(float(loss_h))
+    gmax = max(float(g.abs().max()) for g in _tree.leaves(grads_h))
+    for a, b in zip(_tree.leaves(grads_c), _tree.leaves(grads_h)):
+        assert _max_err(a, b) <= 1e-4 * gmax
+    step = make_train_step(cfg)
+    host, _, _ = step(params, adamw_init(params), batch, 0.0)
+    dev_params = _to(params, cuda)
+    card, state, _ = step(dev_params, adamw_init(dev_params),
+                            _to(batch, cuda), 0.0)
+    assert state.step.device.type == "cuda"
+    for a, b in zip(_tree.leaves(card), _tree.leaves(host)):
+        assert a.device.type == "cuda" and _max_err(a, b) <= 1e-4
+    layout = {k: CBTDConfig(gamma=0.75, m=8) for k in ("w_x", "w_h", "fcl/w")}
+    pruned_c = cbtd_prune_tree(card, layout, 1.0)
+    pruned_h = cbtd_prune_tree(_to(card, "cpu"), layout, 1.0)
+    for a, b in zip(_tree.leaves(pruned_c), _tree.leaves(pruned_h)):
+        assert torch.equal(a.cpu(), b)
+
+    cfg, params, batch = _train_case(delta=True)
+    loss_h, _ = loss_and_grads(params, cfg, batch)
+    loss_c, _ = loss_and_grads(_to(params, cuda), cfg, _to(batch, cuda))
+    assert abs(float(loss_c) - float(loss_h)) <= 1e-4 * abs(float(loss_h))

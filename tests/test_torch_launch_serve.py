@@ -264,7 +264,8 @@ def test_launcher_end_to_end_on_cpu():
     assert "dispatch economy" in proc.stdout
 
 
-@pytest.mark.parametrize("args,item", [(["--spartus"], "item 12"),
+@pytest.mark.parametrize("args,item", [(["--spartus", "--devices", "2"],
+                                        "item 10"),
                                        ([], "item 14"),
                                        (["--async"], "--async requires")])
 def test_unported_modes_exit_with_their_roadmap_item(capsys, args, item):
