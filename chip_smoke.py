@@ -17,9 +17,13 @@ Phases; any failure exits non-zero before a result line is printed:
 1. Device: the card's name and power limit (``nvidia-smi``).  Exits 1
    when ``torch.cuda.is_available()`` is false.
 2. Build and kernels: builds the CUDA kernels from ``src/repro_torch/
-   kernels/csrc`` with nvcc, then holds each of the four kernels against
+   kernels/csrc`` with nvcc, then holds each of the five kernels against
    its plain PyTorch version on the card at the serving shapes of the
-   paper's 2x1024 DeltaLSTM: the fused IPU and HPE layer-step stages
+   paper's 2x1024 DeltaLSTM: the dense-mirror product ``torch.equal`` to
+   its float64 plain version (any element that differs fails, printed
+   with its ulps) at B = 1, 16 and 32 on both layers, fp32 and int8
+   packs, each row equal to the same row alone; the fused IPU and HPE
+   layer-step stages
    bit for bit (``torch.equal``, 12 of 16 slots active, state updated in
    place), the reference's call shapes at 1e-6 with exact fired counts,
    the SpMV bit-identical to the plain scatter on the host, whose per-row
@@ -38,11 +42,12 @@ Phases; any failure exits non-zero before a result line is printed:
    CPU (1e-4 on 4 requests cut to 64 frames: fp32 sums run in another
    order on the two, compounded through two recurrent layers), and that
    every kernel of the route was launched, counting the pool's launches
-   and the batch-1 engine's apart.  Then the cost of the float64
-   dense-mirror GEMM against a plain fp32 ``torch.matmul``, and of the
-   int8 pack's dense route, which widens its mirror every call
-   (``mirror_cost``), and a profile of one wave per route (device launches per layer-frame,
-   busy time, idle share).
+   and the batch-1 engine's apart.  Then the dense-mirror kernel's cost
+   against a plain fp32 ``torch.matmul`` and the float64 cuBLAS product
+   it replaced, the weight bytes the fp32 pack saved, and the dense route
+   served with an fp32 matmul swapped in (``mirror_cost``), and a profile
+   of one wave per route (device launches per layer-frame, busy time,
+   idle share).
 4. Streaming front-end at full width: ``AsyncSpartusServer`` over the
    same model (theta=0.3) on the dense-mirror and scatter routes,
    capacity 16, chunk_frames=16, ticks offloaded to a worker thread,
@@ -80,7 +85,16 @@ Phases; any failure exits non-zero before a result line is printed:
    engine per route: pool vs batch-1 (1e-5), logits not all zero and
    changing across frames, temporal sparsity in (0, 1), the pack's
    overflow, launches counted as path ``trained``.
-6. Prints ``{"kernels": [...]}`` and then, as the last line,
+6. Contracts and the rest of the slice: every hot-path contract case
+   (``repro_torch.analysis.cases``: the reference's 14, and the served
+   routes at the served NZI capacity) checked on the card at test scale
+   and at full width (capacity 16, 16-frame chunks), each traced call
+   under sync debug mode "error", zero violations ("contracts:" line);
+   DeltaGRU and DeltaLinear at H=1024, D=123 over 64 frames on the card
+   against the CPU (1e-4) and DeltaGRU at theta 0 against the GRU;
+   ``repro_torch.examples.delta_transformer_decode`` at its published
+   sizes.
+7. Prints ``{"kernels": [...]}`` and then, as the last line,
    ``{"ok": true, "device": {...}}``.
 
 It imports nothing of JAX and nothing of the JAX package ``repro``.
@@ -101,6 +115,7 @@ import numpy as np
 
 ROOT = Path(__file__).resolve().parent
 HBM_BYTES_PER_S = 3.35e12       # H100 SXM HBM3, NVIDIA data sheet
+FP32_FLOPS_PER_S = 67e12        # H100 SXM fp32 outside the tensor cores
 TOL_ELEMENTWISE = 1e-6
 TOL_SPMV = 1e-5
 TOL_POOL_VS_BATCH1 = 1e-5
@@ -116,6 +131,7 @@ LAUNCHER_TIMEOUT_S = 300
 TRAIN_BATCH, TRAIN_FRAMES, TRAIN_STEPS_PER_EPOCH = 16, 64, 5
 PRETRAIN_EPOCHS, RETRAIN_EPOCHS, DELTA_ALPHA = 3, 1, 0.5
 TRAINED_ROUTES = ("auto", "scatter")
+MIRROR_BATCHES = (1, 16, 32)
 
 
 class SmokeFailure(RuntimeError):
@@ -177,6 +193,28 @@ def device_ms(torch, fn, kernel: str, iters: int = 50):
 
 def bound_ms(n_bytes: float) -> float:
     return n_bytes / HBM_BYTES_PER_S * 1e3
+
+
+def kernel_counters():
+    """Every kernel wrapper's launch counter, by kernel name."""
+    from repro_torch.kernels import delta_encode as de
+    from repro_torch.kernels import dense_mirror as dm
+    from repro_torch.kernels import lstm_pointwise as lp
+    from repro_torch.kernels import stsp_spmv as sp
+
+    return {"delta_encode": de.KERNEL, "lstm_pointwise": lp.KERNEL,
+            "stsp_spmv_scatter_batch": sp.SCATTER_BATCH_KERNEL,
+            "stsp_spmv": sp.KERNEL, "dense_mirror": dm.KERNEL}
+
+
+def zero_counts(counters) -> None:
+    for kern in counters.values():
+        kern.launches = 0
+
+
+def read_counts(torch, counters):
+    torch.cuda.synchronize()
+    return {name: kern.launches for name, kern in counters.items()}
 
 
 def max_err(a, b) -> float:
@@ -443,7 +481,107 @@ def kernel_checks(torch, layers, seed: int):
         row["bound_by"] = "bytes"
         for case in row.get("cases", []) + [row]:
             case["bound_ms"] = bound_ms(case["bytes"])
+            case["bound_by"] = "bytes"
     return rows
+
+
+def ulp_report(torch, got, want):
+    """(elements that differ, most ulps between them) of two float32
+    tensors."""
+    diff = got != want
+    n = int(diff.sum())
+    if n == 0:
+        return 0, 0
+    ulps = (got.view(torch.int32).long() - want.view(torch.int32).long())
+    return n, int(ulps.abs()[diff].max())
+
+
+def mirror_checks(torch, params, am_cfg, seed: int):
+    """The dense-mirror kernel on both layers' packed mirrors of the 2x1024
+    model (fp32 and int8 packs), ~30% of the deltas fired, at B = 1, 16
+    and 32: ``torch.equal`` to its plain float64 product on the card
+    (any element that differs fails the check, printed with its ulps),
+    and each row equal to the same row computed alone.  The main row is
+    layer 2, B=16, fp32: the "auto" route's product."""
+    from repro_torch import serving as rt
+    from repro_torch.core import QuantConfig
+    from repro_torch.kernels import dense_mirror as dm
+
+    packs = {label: rt.BatchedSpartusEngine(params, am_cfg, rt.EngineConfig(
+        theta=am_cfg.theta, gamma=GAMMA, m=M, spmv_path="dense",
+        quant=quant)).layers for label, quant in (("fp32", None),
+                                                  ("int8", QuantConfig()))}
+    dev = packs["fp32"][0].w_dense_t.device
+    g = torch.Generator(device=dev).manual_seed(seed)
+    cases = []
+    for layer_no in (2, 1):
+        for label, layers in packs.items():
+            layer = layers[layer_no - 1]
+            wt = layer.w_dense_t
+            check(wt.dtype == (torch.float32 if label == "fp32"
+                               else torch.int8),
+                  f"dense_mirror: the {label} pack's mirror is {wt.dtype}")
+            scale = layer.scale if label == "int8" else None
+            q, n = wt.shape
+            fired = torch.rand((max(MIRROR_BATCHES), q), generator=g,
+                               device=dev) < 0.3
+            ds_all = torch.where(fired, torch.randn(
+                fired.shape, generator=g, device=dev), 0.0)
+            alone = torch.cat([dm.dense_mirror(ds_all[i:i + 1], wt, scale)
+                               for i in range(ds_all.shape[0])])
+            for b in MIRROR_BATCHES:
+                ds = ds_all[:b].contiguous()
+                run = lambda: dm.dense_mirror(ds, wt, scale)  # noqa: E731
+                plain = lambda: dm.plain(ds, wt, scale)       # noqa: E731
+                got, want = run(), plain()
+                n_diff, ulps = ulp_report(torch, got, want)
+                name = (f"layer {layer_no} {label} B={b} Q={q} N={n}")
+                if n_diff:
+                    print(f"kernel dense_mirror [{name}]: {n_diff} of "
+                          f"{got.numel()} elements differ from the plain "
+                          f"version, by <= {ulps} ulp", flush=True)
+                check(n_diff == 0, f"dense_mirror {name}: {n_diff} elements "
+                                   f"differ from its plain version by <= "
+                                   f"{ulps} ulp")
+                check(torch.equal(got, alone[:b]),
+                      f"dense_mirror {name}: a row differs from the same "
+                      f"row computed alone")
+                # the work this data needs: the mirror rows of the columns
+                # fired in any row, each read once; a multiply-add per
+                # fired delta and output column
+                touched = int((ds != 0).any(0).sum())
+                n_bytes = (b * q * 4 + touched * n * wt.element_size()
+                           + b * n * 4)
+                n_ops = 2 * int((ds != 0).sum()) * n
+                bytes_ms = bound_ms(n_bytes)
+                ops_ms = n_ops / FP32_FLOPS_PER_S * 1e3
+                case = {
+                    "case": name, "max_abs_err": max_err(got, want),
+                    "ulp_diffs": n_diff,
+                    "ms": time_ms(torch, run),
+                    "kernel_device_ms": device_ms(torch, run,
+                                                  "dense_mirror_kernel"),
+                    "plain_ms": time_ms(torch, plain),
+                    "bytes": n_bytes, "ops": n_ops,
+                    "bound_ms": max(bytes_ms, ops_ms),
+                    "bound_by": "bytes" if bytes_ms >= ops_ms
+                                else "operations",
+                    "library_ms": None, "library_device_ms": None,
+                }
+                if label == "fp32":
+                    # cuBLAS's fp32 GEMM: not batch-invariant, never called
+                    # by the port
+                    library = lambda: ds @ wt              # noqa: E731
+                    case["library_ms"] = time_ms(torch, library)
+                    case["library_device_ms"] = device_ms(torch, library, "")
+                cases.append(case)
+    return {"dense_mirror": dict(
+        cases[1], route="cuda",
+        source="src/repro_torch/kernels/csrc/spartus_kernels.cu",
+        replaces="src/repro/kernels/ops.py:341",
+        note="replaces the XLA dot in delta_spmv_dense_topk_batch: a "
+             "repair of the port, not the port of a TPU kernel",
+        cases=cases)}
 
 
 # -- phase 3: serving at full width -----------------------------------------
@@ -462,13 +600,8 @@ def make_requests(rt, am_cfg, rng):
 def serving_runs(torch, params, am_cfg, rng, out_dir: Path):
     from repro_torch import serving as rt
     from repro_torch.core import QuantConfig
-    from repro_torch.kernels import delta_encode as de
-    from repro_torch.kernels import lstm_pointwise as lp
-    from repro_torch.kernels import stsp_spmv as sp
 
-    counters = {"delta_encode": de.KERNEL, "lstm_pointwise": lp.KERNEL,
-                "stsp_spmv_scatter_batch": sp.SCATTER_BATCH_KERNEL,
-                "stsp_spmv": sp.KERNEL}
+    counters = kernel_counters()
     requests = make_requests(rt, am_cfg, rng)
     cpu_requests = [rt.StreamRequest(r.req_id, 0,
                                      r.feats[:CPU_CHECK_FRAMES])
@@ -477,14 +610,6 @@ def serving_runs(torch, params, am_cfg, rng, out_dir: Path):
                      for r in requests[:CAPACITY]]
     launches = {path: {name: 0 for name in counters}
                 for path in ("pool", "batch1")}
-
-    def zero_counts():
-        for kern in counters.values():
-            kern.launches = 0
-
-    def read_counts():
-        torch.cuda.synchronize()
-        return {name: kern.launches for name, kern in counters.items()}
 
     report = []
     for route, quant in (("auto", None), ("scatter", None),
@@ -501,17 +626,17 @@ def serving_runs(torch, params, am_cfg, rng, out_dir: Path):
                           chunk_frames=CHUNK_FRAMES)
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
-        zero_counts()
+        zero_counts(counters)
         t0 = time.perf_counter()
         results, stats = rt.serve_requests(engine, requests, CAPACITY,
                                            chunk_frames=CHUNK_FRAMES)
         wall = time.perf_counter() - t0
-        counts = {"pool": read_counts()}
+        counts = {"pool": read_counts(torch, counters)}
         peak = torch.cuda.max_memory_allocated()
-        zero_counts()
+        zero_counts(counters)
         b1 = [batch1.run_utterance(requests[i].feats).cpu().numpy()
               for i in range(2)]
-        counts["batch1"] = read_counts()
+        counts["batch1"] = read_counts(torch, counters)
         for path, by_name in counts.items():
             for name, n in by_name.items():
                 launches[path][name] += n
@@ -533,10 +658,12 @@ def serving_runs(torch, params, am_cfg, rng, out_dir: Path):
             need = ["delta_encode", "lstm_pointwise"]
             if not all(dense):
                 need.append(spmv[path])
+            if any(dense):
+                need.append("dense_mirror")
             for name in need:
                 check(by_name[name] > 0,
                       f"{label}: {name} never launched on the {path} path")
-            for name in set(spmv.values()) - set(need):
+            for name in set(counters) - set(need):
                 check(by_name[name] == 0,
                       f"{label}: {name} launched on the {path} path")
 
@@ -574,47 +701,42 @@ def serving_runs(torch, params, am_cfg, rng, out_dir: Path):
 
 
 def mirror_cost(torch, params, am_cfg, requests, seed: int, out_dir: Path):
-    """What the float64 dense-mirror GEMM costs against a plain fp32
-    ``torch.matmul``, and what fp32 would break.
+    """What the batch-invariant dense-mirror kernel costs against two
+    yardsticks the port never calls, a plain fp32 ``torch.matmul`` and the
+    float64 cuBLAS product the port used before it (the mirror held in
+    float64 at rest in the fp32 pack, widened from int8 on every call in
+    the int8 pack), and what fp32 would break.
 
-    Op level, at layer 2's shapes (B=16, Q=2048, 4H=4096): the product
-    with the mirror stored in float64 (the port), widened from fp32 on
-    every call, and in plain fp32, with each one's gap between row 0 of
-    the B=16 product and the same row computed alone.  End to end: the
-    dense route served with the port's float64 mirror and with an fp32
-    mirror and matmul swapped in (runs in the order f64, fp32, fp32,
-    f64), and the fp32 pool's gap to the fp32 batch-1 engine.
-
-    The int8 pack's dense route (what the 2x1024 model takes under
-    ``launch/serve.py --quant``): its mirror is stored int8 and widened
-    to float64 on every call.  Op level: the product, the widening alone
-    and the whole capacity-clip + product route at layer 2, B=16, and the
-    bytes each call widens; end to end: the route served, checked pool
-    vs batch-1 (1e-5)."""
+    Op level, at layer 2's shapes (B=16, Q=2048, 4H=4096): each product's
+    time and the gap between row 0 of its B=16 product and the same row
+    computed alone; the whole capacity-clip + product route of the int8
+    pack.  Weight memory: the bytes the fp32 pack's mirrors no longer
+    take (4 a weight).  End to end: the dense route served with the
+    kernel and with an fp32 matmul swapped in (runs in the order kernel,
+    fp32, fp32, kernel), and the fp32 pool's gap to the fp32 batch-1
+    engine; the int8 pack's dense route served, pool vs batch-1 (1e-5)."""
     from repro_torch import serving as rt
     from repro_torch.core import QuantConfig
     from repro_torch.kernels import ops
 
     ecfg = rt.EngineConfig(theta=am_cfg.theta, gamma=GAMMA, m=M)
     engine = rt.BatchedSpartusEngine(params, am_cfg, ecfg)
-    layer = engine.layers[1]
-    w64 = layer.w_dense_t
-    check(w64 is not None and w64.dtype == torch.float64,
-          "the fp32 pack's layer-2 mirror is not float64")
-    w32 = w64.float()
-    g = torch.Generator(device=w64.device).manual_seed(seed)
-    q = w64.shape[0]
-    fired = torch.rand((CAPACITY, q), generator=g, device=w64.device) < 0.3
+    w32 = engine.layers[1].w_dense_t
+    check(w32 is not None and w32.dtype == torch.float32,
+          "the fp32 pack's layer-2 mirror is not float32")
+    w64 = w32.double()
+    g = torch.Generator(device=w32.device).manual_seed(seed)
+    q = w32.shape[0]
+    fired = torch.rand((CAPACITY, q), generator=g, device=w32.device) < 0.3
     ds = torch.where(fired, torch.randn((CAPACITY, q), generator=g,
-                                        device=w64.device), 0.0)
-    gemms = {"float64_at_rest": lambda a: ops._mirror_matmul(a, w64),
-             "float64_widened_per_call": lambda a: ops._mirror_matmul(a, w32),
-             "fp32_matmul": lambda a: a @ w32}
-    op = {}
-    for name, fn in gemms.items():
-        op[name] = {"ms": time_ms(torch, lambda: fn(ds)),
-                    "row0_b16_vs_b1": max_err(fn(ds)[0], fn(ds[:1])[0])}
-
+                                        device=w32.device), 0.0)
+    gemms = {
+        "kernel_fp32": lambda a: ops._mirror_matmul(a, w32),
+        "fp32_matmul": lambda a: a @ w32,
+        "float64_at_rest": lambda a: (a.double() @ w64).float(),
+        "float64_widened_per_call": lambda a: (a.double()
+                                               @ w32.double()).float(),
+    }
     qcfg = rt.EngineConfig(theta=am_cfg.theta, gamma=GAMMA, m=M,
                            quant=QuantConfig())
     qengine = rt.BatchedSpartusEngine(params, am_cfg, qcfg)
@@ -622,16 +744,20 @@ def mirror_cost(torch, params, am_cfg, requests, seed: int, out_dir: Path):
     w8, scale, cap = qlayer.w_dense_t, qlayer.scale, qlayer.capacity
     check(w8 is not None and w8.dtype == torch.int8,
           "the int8 pack's layer-2 mirror is not int8")
-    product = lambda: ops._mirror_matmul(ds, w8)  # noqa: E731
-    op["int8_widened_per_call"] = {
-        "ms": time_ms(torch, product),
-        "device_ms": device_ms(torch, product, ""),
-        "widen_ms": time_ms(torch, lambda: w8.to(torch.float64)),
-        "widen_bytes_per_call": w8.numel() * 8,
-        "route_ms": time_ms(torch, lambda: ops.delta_spmv_dense_topk_batch(
-            w8, ds, cap, scale=scale)),
-        "row0_b16_vs_b1": max_err(product()[0],
-                                  ops._mirror_matmul(ds[:1], w8)[0])}
+    gemms["kernel_int8"] = lambda a: ops._mirror_matmul(a, w8, scale)
+    gemms["int8_float64_widened_per_call"] = lambda a: (
+        a.double() @ w8.double()).float() * scale
+    op = {}
+    for name, fn in gemms.items():
+        op[name] = {"ms": time_ms(torch, lambda: fn(ds)),
+                    "device_ms": device_ms(torch, lambda: fn(ds), ""),
+                    "row0_b16_vs_b1": max_err(fn(ds)[0], fn(ds[:1])[0])}
+    op["int8_route"] = {"ms": time_ms(
+        torch, lambda: ops.delta_spmv_dense_topk_batch(w8, ds, cap,
+                                                       scale=scale))}
+    saved = sum(4 * l.w_dense_t.numel() for l in engine.layers
+                if l.w_dense_t is not None)
+
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
@@ -650,40 +776,39 @@ def mirror_cost(torch, params, am_cfg, requests, seed: int, out_dir: Path):
                   "max_memory_allocated": torch.cuda.max_memory_allocated(),
                   "pool_vs_batch1_max_err": q_err}
 
-    fp32_mirror = lambda ds_, w: ds_ @ w         # noqa: E731
-    saved = ops._mirror_matmul
+    fp32_mirror = lambda ds_, w, scale=None: ds_ @ w     # noqa: E731
+    kernel = ops._mirror_matmul
 
     def serve(fp32: bool):
-        eng = rt.BatchedSpartusEngine(params, am_cfg, ecfg)
-        if fp32:
-            for l in eng.layers:
-                l.w_dense_t = l.w_dense_t.float()
-        ops._mirror_matmul = fp32_mirror if fp32 else saved
+        ops._mirror_matmul = fp32_mirror if fp32 else kernel
         try:
+            eng = rt.BatchedSpartusEngine(params, am_cfg, ecfg)
             torch.cuda.synchronize()
             torch.cuda.reset_peak_memory_stats()
             t0 = time.perf_counter()
             results, stats = rt.serve_requests(eng, requests, CAPACITY,
                                                chunk_frames=CHUNK_FRAMES)
             wall = time.perf_counter() - t0
-            run = {"fp32": fp32, "wall_s": wall,
+            run = {"fp32_matmul": fp32, "wall_s": wall,
                    "frames_per_s": stats.total_frames / wall,
                    "max_memory_allocated": torch.cuda.max_memory_allocated()}
-            if fp32:
-                b1 = rt.SpartusEngine(params, am_cfg, ecfg)
-                for l in b1.layers:
-                    l.w_dense_t = l.w_dense_t.float()
-                run["pool_vs_batch1_max_err"] = max(
-                    float(np.abs(results[i].logits - b1.run_utterance(
-                        requests[i].feats).cpu().numpy()).max())
-                    for i in range(2))
+            b1 = rt.SpartusEngine(params, am_cfg, ecfg)
+            run["pool_vs_batch1_max_err"] = max(
+                float(np.abs(results[i].logits - b1.run_utterance(
+                    requests[i].feats).cpu().numpy()).max())
+                for i in range(2))
             return run
         finally:
-            ops._mirror_matmul = saved
+            ops._mirror_matmul = kernel
 
     runs = [serve(fp32) for fp32 in (False, True, True, False)]
-    report = {"op_layer2_b16": op, "serve_dense_route": runs,
-              "serve_int8_dense_route": int8_route}
+    for run in runs:
+        if not run["fp32_matmul"]:
+            check(run["pool_vs_batch1_max_err"] <= TOL_POOL_VS_BATCH1,
+                  f"dense route: pool vs batch-1 max err "
+                  f"{run['pool_vs_batch1_max_err']}")
+    report = {"op_layer2_b16": op, "fp32_pack_mirror_bytes_saved": saved,
+              "serve_dense_route": runs, "serve_int8_dense_route": int8_route}
     (out_dir / "chip_smoke_mirror.json").write_text(
         json.dumps(report, indent=1))
     print(f"mirror gemm: {json.dumps(report)}", flush=True)
@@ -987,13 +1112,8 @@ def streaming_runs(torch, params, am_cfg, rng, out_dir: Path):
     """Phase 4 on both routes; returns the stream path's launch counts
     per kernel (summed over the routes) and the report."""
     from repro_torch import serving as rt
-    from repro_torch.kernels import delta_encode as de
-    from repro_torch.kernels import lstm_pointwise as lp
-    from repro_torch.kernels import stsp_spmv as sp
 
-    counters = {"delta_encode": de.KERNEL, "lstm_pointwise": lp.KERNEL,
-                "stsp_spmv_scatter_batch": sp.SCATTER_BATCH_KERNEL,
-                "stsp_spmv": sp.KERNEL}
+    counters = kernel_counters()
     clients = make_stream_clients(am_cfg, rng)
     warm = [dict(c, feats=c["feats"][:2 * CHUNK_FRAMES], start=0.0,
                  blocks=[(0, 2 * CHUNK_FRAMES)], gaps=[0.0], cancel_at=None,
@@ -1005,17 +1125,17 @@ def streaming_runs(torch, params, am_cfg, rng, out_dir: Path):
             theta=am_cfg.theta, gamma=GAMMA, m=M, spmv_path=route))
         dense = [l.w_dense_t is not None for l in engine.layers]
         serve_streams(torch, engine, warm)            # untimed warm-up
-        for kern in counters.values():
-            kern.launches = 0
+        zero_counts(counters)
         run = serve_streams(torch, engine, clients, scrape=True, timed=True)
-        torch.cuda.synchronize()
-        counts = {name: kern.launches for name, kern in counters.items()}
+        counts = read_counts(torch, counters)
         for name, n in counts.items():
             launches[name] += n
         srv, outs = run["srv"], run["outs"]
         need = ["delta_encode", "lstm_pointwise"]
         if not all(dense):
             need.append("stsp_spmv_scatter_batch")
+        if any(dense):
+            need.append("dense_mirror")
         for name in need:
             check(counts[name] > 0,
                   f"stream {route}: {name} never launched on the stream path")
@@ -1237,8 +1357,7 @@ def serve_trained(torch, params, am_cfg, requests, counters):
     between 0 and 1; counts every kernel's launches over the leg."""
     from repro_torch import serving as rt
 
-    for kern in counters.values():
-        kern.launches = 0
+    zero_counts(counters)
     routes = []
     for route in TRAINED_ROUTES:
         ecfg = rt.EngineConfig(theta=am_cfg.theta, gamma=GAMMA, m=M,
@@ -1283,8 +1402,7 @@ def serve_trained(torch, params, am_cfg, requests, counters):
                                   for r in results),
             "pool_vs_batch1_max_err": err_b1,
         })
-    torch.cuda.synchronize()
-    launches = {name: kern.launches for name, kern in counters.items()}
+    launches = read_counts(torch, counters)
     for name, n in launches.items():
         check(n > 0, f"trained: {name} never launched serving the trained "
                      f"weights")
@@ -1296,13 +1414,7 @@ def training_runs(torch, requests, random_ts, seed: int, out_dir: Path):
     weights through the kernels, reporting each route's temporal sparsity
     beside the one phase 3's scaled random network reached on it
     (``random_ts``, by route).  Returns the launches per kernel."""
-    from repro_torch.kernels import delta_encode as de
-    from repro_torch.kernels import lstm_pointwise as lp
-    from repro_torch.kernels import stsp_spmv as sp
-
-    counters = {"delta_encode": de.KERNEL, "lstm_pointwise": lp.KERNEL,
-                "stsp_spmv_scatter_batch": sp.SCATTER_BATCH_KERNEL,
-                "stsp_spmv": sp.KERNEL}
+    counters = kernel_counters()
     report, params, am_cfg = train_phase(torch, seed)
     report["device"] = nvidia_smi()
     brief = {k: v for k, v in report.items() if not k.endswith("_losses")}
@@ -1317,6 +1429,127 @@ def training_runs(torch, requests, random_ts, seed: int, out_dir: Path):
     (out_dir / "chip_smoke_train.json").write_text(json.dumps(report,
                                                               indent=1))
     return launches
+
+
+# -- phase 6: hot-path contracts, DeltaGRU / DeltaLinear, an example ---------
+
+
+def contract_checks(torch, out_dir: Path):
+    """Every contract case (``repro_torch.analysis.cases``: the reference's
+    14 and the served routes at the served NZI capacity) on the card at
+    test scale and at the 2x1024 model's full width (capacity 16, 16-frame
+    chunks), each traced call under sync debug mode "error"; fails on any
+    violation.  Returns the kernels' launches over the checks."""
+    from repro_torch.analysis import cases, contracts
+
+    counters = kernel_counters()
+    zero_counts(counters)
+    reports = []
+    for width in ("test", "full"):
+        for case in (cases.build_cases(width=width, device="cuda")
+                     + cases.served_cases(width=width, device="cuda")):
+            built = case.build()
+            torch.cuda.synchronize()
+            torch.cuda.set_sync_debug_mode("error")
+            try:
+                report = contracts.check_built(case, built)
+            except RuntimeError as exc:
+                raise SmokeFailure(f"contract case {width} {case.name}: a "
+                                   f"device sync on its call: {exc}")
+            finally:
+                torch.cuda.set_sync_debug_mode(0)
+            reports.append(dict(report.to_dict(), width=width))
+    launches = read_counts(torch, counters)
+    violations = [dict(v, case=r["case"], width=r["width"])
+                  for r in reports for v in r["violations"]]
+    summary_line = {"cases": len(reports), "violations": len(violations),
+                    "by_width": {w: sum(r["width"] == w for r in reports)
+                                 for w in ("test", "full")},
+                    "launches": launches}
+    (out_dir / "chip_smoke_contracts.json").write_text(
+        json.dumps(reports, indent=1))
+    print(f"contracts: {json.dumps(summary_line)}", flush=True)
+    check(not violations, f"contract violations on the card: {violations}")
+    return launches
+
+
+def delta_rnn_checks(torch, seed: int):
+    """DeltaGRU and DeltaLinear at H=1024, D=123 over 64 frames of a
+    smooth seeded signal on the card against the same calls on the CPU
+    (1e-4: fp32 products summed in another order, through the
+    recurrence), with the fired counts equal; DeltaGRU at theta 0 against
+    the plain GRU on the card (1e-4)."""
+    from repro_torch import core
+
+    d, h, t, theta = 123, 1024, 64, 0.1
+    rng = np.random.default_rng(seed)
+    xs = np.zeros((t, d), np.float32)
+    xs[0] = rng.standard_normal(d)
+    for i in range(1, t):
+        xs[i] = 0.9 * xs[i - 1] + 0.1 * rng.standard_normal(d)
+    host = core.init_gru_params(torch.Generator().manual_seed(seed), d, h)
+    host["b_x"] = 0.1 * torch.randn((3, h),
+                                    generator=torch.Generator().manual_seed(1))
+    card = {k: v.cuda() for k, v in host.items()}
+    x_host = torch.from_numpy(xs)
+    x_card = x_host.cuda()
+    report = {}
+    t0 = time.perf_counter()
+    hs_c, st_c, aux_c = core.delta_gru_layer(card, x_card, theta)
+    torch.cuda.synchronize()
+    report["delta_gru_card_s"] = time.perf_counter() - t0
+    hs_h, st_h, aux_h = core.delta_gru_layer(host, x_host, theta)
+    report["delta_gru_card_vs_cpu"] = max(
+        [max_err(hs_c.cpu(), hs_h)]
+        + [max_err(a.cpu(), b) for a, b in zip(st_c, st_h)])
+    check(report["delta_gru_card_vs_cpu"] <= TOL_CARD_VS_CPU,
+          f"DeltaGRU card vs CPU max err {report['delta_gru_card_vs_cpu']}")
+    for k in ("nnz_dx", "nnz_dh"):
+        check(torch.equal(aux_c[k].cpu(), aux_h[k]),
+              f"DeltaGRU {k} differs between the card and the CPU")
+    report["delta_gru_temporal_sparsity_dx"] = 1.0 - float(
+        aux_c["nnz_dx"].float().mean()) / d
+    hs0, _, _ = core.delta_gru_layer(card, x_card, 0.0)
+    report["delta_gru_theta0_vs_gru"] = max_err(hs0,
+                                                core.gru_layer(card, x_card))
+    check(report["delta_gru_theta0_vs_gru"] <= TOL_CARD_VS_CPU,
+          f"DeltaGRU at theta 0 vs the GRU: "
+          f"{report['delta_gru_theta0_vs_gru']}")
+
+    gen = torch.Generator().manual_seed(seed + 2)
+    w = torch.randn((4 * h, d), generator=gen) / d ** 0.5
+    bias = torch.randn((4 * h,), generator=gen)
+    ys_c, st_c, aux_c = core.delta_linear_over_time(w.cuda(), x_card, theta,
+                                                    bias=bias.cuda())
+    ys_h, st_h, aux_h = core.delta_linear_over_time(w, x_host, theta,
+                                                    bias=bias)
+    report["delta_linear_card_vs_cpu"] = max(max_err(ys_c.cpu(), ys_h),
+                                             max_err(st_c.y.cpu(), st_h.y))
+    check(report["delta_linear_card_vs_cpu"] <= TOL_CARD_VS_CPU,
+          f"DeltaLinear card vs CPU max err "
+          f"{report['delta_linear_card_vs_cpu']}")
+    check(torch.equal(aux_c["nnz_dx"].cpu(), aux_h["nnz_dx"]),
+          "DeltaLinear nnz_dx differs between the card and the CPU")
+    print(f"delta rnn: {json.dumps(report)}", flush=True)
+    return report
+
+
+def transformer_example(torch):
+    """``python -m repro_torch.examples.delta_transformer_decode`` at its
+    published sizes on the card: speech-like inputs sparser than text at
+    every threshold above 0, the dense product at theta 0."""
+    from repro_torch.examples import delta_transformer_decode as ex
+
+    rows = ex.main([])
+    torch.cuda.synchronize()
+    check(rows[0]["max_err"] <= 1e-3,
+          f"DeltaLinear at theta 0 departs from the dense product by "
+          f"{rows[0]['max_err']}")
+    check(all(r["speech_ts"] > r["text_ts"] for r in rows[1:]),
+          f"speech-like inputs not sparser than text: {rows}")
+    print(f"example delta_transformer_decode: {json.dumps(rows)}",
+          flush=True)
+    return rows
 
 
 def boundary_costs(torch, rt, engine, requests, observability=None):
@@ -1470,13 +1703,25 @@ def main() -> int:
         serving.EngineConfig(theta=am_cfg.theta, spmv_path="scatter"),
     ).layers
     rows = kernel_checks(torch, layers, args.seed)
+    rows.update(mirror_checks(torch, params, am_cfg, args.seed))
     for name, row in rows.items():
+        for case in [row] + row.get("cases", []):
+            for key in ("kernel_device_ms", "library_device_ms"):
+                # no call beats its bound: a reading under it means the
+                # profiler missed events, and it is not kept
+                if (case.get(key) is not None
+                        and case[key] < case["bound_ms"]):
+                    print(f"kernel {name} [{case['case']}]: {key} "
+                          f"{case[key]} is under the bound "
+                          f"{case['bound_ms']:.6f}: discarded (the "
+                          f"profiler missed events)", flush=True)
+                    case[key] = None
         for case in row.get("cases", [row]):
             print(f"kernel {name} [{case['case']}]: max_abs_err "
                   f"{case['max_abs_err']:.3g} ms {case['ms']:.5f} "
                   f"kernel_device_ms {case['kernel_device_ms']} plain_ms "
                   f"{case['plain_ms']:.5f} bytes {case['bytes']} "
-                  f"bound_ms {case['bound_ms']:.6f} "
+                  f"bound_ms {case['bound_ms']:.6f} ({case['bound_by']}) "
                   f"library_ms {case.get('library_ms')} library_device_ms "
                   f"{case.get('library_device_ms')} glue_ms "
                   f"{case.get('glue_ms')} glue_device_ms "
@@ -1500,10 +1745,15 @@ def main() -> int:
     trained_launches = training_runs(torch, requests, random_ts, args.seed,
                                      out_dir)
 
+    # phase 6: hot-path contracts, DeltaGRU / DeltaLinear, an example
+    contract_launches = contract_checks(torch, out_dir)
+    delta_rnn_checks(torch, args.seed)
+    transformer_example(torch)
+
     kernels = []
     for name, row in rows.items():
-        # stsp_spmv (B=1) serves only the batch-1 engine; the other three
-        # are counted on the pool, the main path
+        # stsp_spmv (B=1) serves only the batch-1 engine; the others are
+        # counted on the pool, the main path
         path = "batch1" if name == "stsp_spmv" else "pool"
         kernels.append({
             "name": name, "route": row["route"], "source": row["source"],
@@ -1511,12 +1761,14 @@ def main() -> int:
             "launches_by_path": dict(
                 {p: launches[p][name] for p in launches},
                 stream=stream_launches[name],
-                trained=trained_launches[name]),
+                trained=trained_launches[name],
+                contracts=contract_launches[name]),
             "max_abs_err": row["max_abs_err"], "ms": row["ms"],
             "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
             "bound_by": row["bound_by"], "library_ms": row["library_ms"],
             "library_device_ms": row["library_device_ms"],
             "kernel_device_ms": row["kernel_device_ms"], "bytes": row["bytes"],
+            "note": row.get("note"),
             "cases": row.get("cases", []),
         })
     for k in kernels:

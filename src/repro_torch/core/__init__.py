@@ -1,7 +1,7 @@
 """Core: the paper's contributions as PyTorch functions (port of
 ``repro/core``).
 
-- DeltaLSTM (temporal sparsity, Sec. II)
+- DeltaLSTM / DeltaGRU / DeltaLinear (temporal sparsity, Sec. II)
 - CBTD structured pruning (spatial sparsity, Sec. III-A/B)
 - CBCSC sparse format (Sec. III-C)
 - fixed-point quantization (Sec. IV-E)
@@ -17,6 +17,21 @@ from repro_torch.core.cbtd import (
     cbtd_tile_mask,
     drop_count,
     keep_count,
+)
+from repro_torch.core.delta_gru import (
+    DeltaGRUState,
+    delta_gru_layer,
+    delta_gru_step,
+    gru_layer,
+    gru_step,
+    init_delta_gru_state,
+    init_gru_params,
+)
+from repro_torch.core.delta_linear import (
+    DeltaLinearState,
+    delta_linear_over_time,
+    delta_linear_step,
+    init_delta_linear_state,
 )
 from repro_torch.core.delta_lstm import (
     DeltaLSTMState,

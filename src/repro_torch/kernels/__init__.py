@@ -4,6 +4,8 @@
 delta_encode    — DPE: thresholded delta + reference update (Fig. 6)
 stsp_spmv       — MAC arrays: spatio-temporal sparse MxV over CBCSC (Fig. 2/9)
 lstm_pointwise  — HPE: fused gate nonlinearities + cell update (Fig. 8)
+dense_mirror    — the dense-mirror route's product, batch-invariant (the
+                  port's own kernel, in place of an XLA dot)
 
 The CUDA sources are in ``csrc/`` and are built at first use
 (``_build.py``).  Each kernel module keeps its plain PyTorch version from

@@ -45,6 +45,9 @@ SIGNATURES = {
     "spartus_stsp_spmv_f32_i8": _SPMV_ARGS,
     "spartus_stsp_spmv_i8_i32": _SPMV_ARGS,
     "spartus_stsp_spmv_i8_i8": _SPMV_ARGS,
+    # device, ds, wt, scale, y, B, Q, N, stream
+    "spartus_dense_mirror_f32": [_I, _P, _P, _P, _P, _I, _I, _I, _P],
+    "spartus_dense_mirror_i8": [_I, _P, _P, _P, _P, _I, _I, _I, _P],
 }
 
 _lock = threading.Lock()

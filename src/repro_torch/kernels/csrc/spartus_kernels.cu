@@ -1,5 +1,6 @@
 // Hand-written Hopper (sm_90a) kernels of the Spartus datapath: the CUDA
-// ports of the four Pallas TPU kernels of src/repro/kernels/.
+// ports of the four Pallas TPU kernels of src/repro/kernels/, and the
+// batch-invariant dense-mirror product that stands in for an XLA dot.
 //
 // Plain C interface, bound from Python with ctypes
 // (src/repro_torch/kernels/_build.py).  Every entry point takes the CUDA
@@ -687,6 +688,204 @@ int launch_stsp_spmv(int device, const void* val, const void* lidx,
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
+// ---------------------------------------------------------------------------
+// dense_mirror: the dense-mirror SpMV's product, batch-invariant
+//
+// Replaces: no Pallas kernel.  It is the port's own repair of the XLA dot
+//           in src/repro/kernels/ops.py:delta_spmv_dense_topk_batch
+//           (ds [B, Q] @ wt [Q, N], an int8 mirror widened inside the GEMM
+//           fusion).  cuBLAS picks another fp32 reduction order for 1 row
+//           than for 16, and the recurrence amplifies the last bit: with
+//           an fp32 product the pool drifted 0.52 in logits from the
+//           batch-1 engine.
+// Computes: y[b, j] = float(sum_k double(ds[b, k]) * double(wt[k, j])),
+//           then y * scale[0] in float when scale is given (the int8
+//           mirror's dequantization), with wt [Q, N] float or int8 at
+//           rest.  Every product is exact in double, and the double sum
+//           carries ~29 bits more than the float it rounds to, so y is the
+//           float nearest the exact sum barring a near-tie: the value a
+//           double GEMM (the plain version) gives, whatever its order.
+// Order:    the k-sum of every output element is a function of Q alone.
+//           k runs in chunks of kMirrorChunk; warp w sums k in [chunk +
+//           32w, chunk + 32w + 32) of every chunk, ascending, into its own
+//           double accumulator, and the block adds the warps' partials in
+//           warp order.  Neither B nor the rows sharing a launch enter
+//           it, so a session's row is bit-identical whatever pool it
+//           shares.  Rows are taken in groups of up to 16 (RB, chosen
+//           from B): a group only decides how many rows share one pass
+//           over the mirror, never a row's sum.  A k at which every row of
+//           the group has ds = 0 is skipped: its terms are +-0, which
+//           changes at most the sign of an exact zero.
+// Bound:    bytes for an fp32 mirror.  The mirror is read once per group
+//           of 16 rows: at layer 2 of the 2x1024 model (Q = 2048,
+//           N = 4096) 33.5 MB, ~0.010 ms at 3.35 TB/s, or 8.4 MB int8,
+//           ~0.0025 ms; B*Q*N multiply-adds (134 M at B = 16) are ~0.004
+//           ms at the fp32 rate and ~0.008 ms at the 34 TFLOP/s of fp64
+//           outside the tensor cores, which this kernel runs on.
+// Design:   one block of 8 warps per 32 output columns (a lane per
+//           column: a warp's mirror load is one 128-byte row segment at
+//           fp32, one 32-byte sector at int8), so N = 4096 gives 128
+//           blocks for 132 SMs.  The warps run apart until the final
+//           combine: lane i of a warp loads the group's ds at k = slice
+//           start + i (RB coalesced loads), widens them into the warp's
+//           own shared region as [k][row] doubles (padded against bank
+//           conflicts) and ballots which k fired; the warp then reads
+//           them back as double2 broadcasts, one per two FMAs.  Each
+//           warp loads the next slice's ds and mirror (32 loads) before
+//           it computes the current one, so the loads of one slice fly
+//           under the FMAs of the last.  Measured on an H100
+//           (tools/mirror_ab.py), Q = 2048, B = 16: 0.029 ms, against
+//           0.055 for a first version whose block staged each chunk
+//           together between two barriers; dropping the zero skip made
+//           B = 16 slower (0.035) and B = 1 faster, and 16 warps a block
+//           0.045.  At 9 TFLOP/s of fp64 the FMAs, not the mirror's
+//           bytes, hold it; the fp64 tensor cores (DMMA) and TMA are for
+//           a later change.
+// ---------------------------------------------------------------------------
+constexpr int kMirrorWarps = 8;
+constexpr int kMirrorThreads = 32 * kMirrorWarps;
+constexpr int kMirrorSlice = 32;                          // k per warp
+constexpr int kMirrorChunk = kMirrorWarps * kMirrorSlice;  // k per chunk
+constexpr int kMirrorMaxRows = 16;
+
+// doubles per k in a warp's staged ds: RB rows, padded by two where the
+// rows are 4 or more, so that lanes writing consecutive k spread over
+// eight bank pairs; even, so that each row pair stays 16-byte aligned
+__host__ __device__ constexpr int mirror_stride(int rb) {
+  return rb >= 4 ? rb + 2 : rb;
+}
+
+// One slice of the group: the ds of lane i's k (RB rows) and the mirror
+// at the slice's 32 k in this lane's column, zero past B, Q or N.
+template <typename W, int RB>
+struct MirrorSlice {
+  float ds[RB];
+  W w[kMirrorSlice];
+
+  __device__ __forceinline__ void load(const float* __restrict__ ds_in,
+                                       const W* __restrict__ wt, int b0,
+                                       int B, int Q, int N, int k0, int j,
+                                       int lane) {
+    const int k = k0 + lane;
+#pragma unroll
+    for (int r = 0; r < RB; ++r) {
+      ds[r] = (b0 + r < B && k < Q)
+                  ? ds_in[static_cast<size_t>(b0 + r) * Q + k]
+                  : 0.0f;
+    }
+#pragma unroll
+    for (int i = 0; i < kMirrorSlice; ++i) {
+      w[i] = (j < N && k0 + i < Q) ? wt[static_cast<size_t>(k0 + i) * N + j]
+                                   : W(0);
+    }
+  }
+};
+
+// RB rows per group (a power of two <= 16); grid ceil(N / 32),
+// kMirrorThreads threads.
+template <typename W, int RB>
+__global__ void __launch_bounds__(kMirrorThreads)
+    dense_mirror_kernel(const float* __restrict__ ds,
+                        const W* __restrict__ wt,
+                        const float* __restrict__ scale,
+                        float* __restrict__ y, int B, int Q, int N) {
+  constexpr int kStride = mirror_stride(RB);
+  constexpr int kRegion = kMirrorSlice * kStride;  // doubles per warp
+  static_assert(kRegion >= RB * 32, "the partials reuse a warp's region");
+  // each warp's staged ds; at the end, the warps' partials [warp][RB][32]
+  __shared__ __align__(16) double smem[kMirrorWarps * kRegion];
+  const int warp = threadIdx.x >> 5;
+  const int lane = threadIdx.x & 31;
+  const int j = blockIdx.x * 32 + lane;
+  double* const mine = smem + warp * kRegion;
+  for (int b0 = 0; b0 < B; b0 += RB) {
+    double acc[RB];
+#pragma unroll
+    for (int r = 0; r < RB; ++r) acc[r] = 0.0;
+    // warp w sums k in [kc + 32w, kc + 32w + 32) for kc = 0, 256, ...
+    MirrorSlice<W, RB> cur;
+    int k0 = warp * kMirrorSlice;
+    cur.load(ds, wt, b0, B, Q, N, k0, j, lane);
+    for (; k0 < Q; k0 += kMirrorChunk) {
+      MirrorSlice<W, RB> next;
+      next.load(ds, wt, b0, B, Q, N, k0 + kMirrorChunk, j, lane);
+      bool fired = false;
+#pragma unroll
+      for (int r = 0; r < RB; ++r) {
+        mine[lane * kStride + r] = static_cast<double>(cur.ds[r]);
+        fired |= cur.ds[r] != 0.0f;
+      }
+      // bit i: some row of the group fired at k0 + i
+      const unsigned live = __ballot_sync(0xffffffffu, fired);
+      __syncwarp();
+#pragma unroll
+      for (int i = 0; i < kMirrorSlice; ++i) {
+        if (!((live >> i) & 1u)) continue;  // uniform across the warp
+        const double wv = static_cast<double>(cur.w[i]);
+        const double* d = mine + i * kStride;
+        if constexpr (RB == 1) {
+          acc[0] = __fma_rn(d[0], wv, acc[0]);
+        } else {
+#pragma unroll
+          for (int r = 0; r < RB; r += 2) {
+            const double2 p = *reinterpret_cast<const double2*>(d + r);
+            acc[r] = __fma_rn(p.x, wv, acc[r]);
+            acc[r + 1] = __fma_rn(p.y, wv, acc[r + 1]);
+          }
+        }
+      }
+      __syncwarp();  // the reads are done before the next slice's writes
+      cur = next;
+    }
+    __syncthreads();  // the previous group's combine has read every region
+#pragma unroll
+    for (int r = 0; r < RB; ++r) smem[(warp * RB + r) * 32 + lane] = acc[r];
+    __syncthreads();
+    for (int e = threadIdx.x; e < RB * 32; e += kMirrorThreads) {
+      const int r = e / 32;
+      const int b = b0 + r;
+      const int jj = blockIdx.x * 32 + (e & 31);
+      if (b >= B || jj >= N) continue;
+      double sum = smem[r * 32 + (e & 31)];
+      for (int w = 1; w < kMirrorWarps; ++w) {
+        sum += smem[(w * RB + r) * 32 + (e & 31)];
+      }
+      float v = __double2float_rn(sum);
+      if (scale != nullptr) v = __fmul_rn(v, *scale);
+      y[static_cast<size_t>(b) * N + jj] = v;
+    }
+    __syncthreads();  // the combine is done before the next group stages
+  }
+}
+
+template <typename W>
+int launch_dense_mirror(int device, const float* ds, const W* wt,
+                        const float* scale, float* y, int B, int Q, int N,
+                        void* stream) {
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  if (B < 0 || Q < 0 || N < 0) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  if (B == 0 || N == 0) return 0;
+  const int rows = B < kMirrorMaxRows ? B : kMirrorMaxRows;
+  const dim3 grid((N + 31) / 32);
+  const auto st = static_cast<cudaStream_t>(stream);
+#define MIRROR_RUN(RR)                                                      \
+  if (rows <= RR) {                                                         \
+    dense_mirror_kernel<W, RR>                                              \
+        <<<grid, kMirrorThreads, 0, st>>>(ds, wt, scale, y, B, Q, N);       \
+    return static_cast<int>(cudaGetLastError());                            \
+  }
+  MIRROR_RUN(1)
+  MIRROR_RUN(2)
+  MIRROR_RUN(4)
+  MIRROR_RUN(8)
+  MIRROR_RUN(16)
+#undef MIRROR_RUN
+  return static_cast<int>(cudaErrorInvalidValue);
+}
+
 }  // namespace
 
 extern "C" {
@@ -775,5 +974,21 @@ SPARTUS_SPMV_ENTRY(spartus_stsp_spmv_i8_i32, int8_t, int32_t)
 SPARTUS_SPMV_ENTRY(spartus_stsp_spmv_i8_i8, int8_t, int8_t)
 
 #undef SPARTUS_SPMV_ENTRY
+
+// ds [B, Q] fp32, wt [Q, N] fp32 or int8, scale a device float or null,
+// y [B, N] written.
+int spartus_dense_mirror_f32(int device, const float* ds, const float* wt,
+                             const float* scale, float* y, int B, int Q,
+                             int N, void* stream) {
+  return launch_dense_mirror<float>(device, ds, wt, scale, y, B, Q, N,
+                                    stream);
+}
+
+int spartus_dense_mirror_i8(int device, const float* ds, const int8_t* wt,
+                            const float* scale, float* y, int B, int Q,
+                            int N, void* stream) {
+  return launch_dense_mirror<int8_t>(device, ds, wt, scale, y, B, Q, N,
+                                     stream);
+}
 
 }  // extern "C"

@@ -18,6 +18,7 @@ from typing import Optional, Tuple
 
 import torch
 
+from repro_torch.analysis import hlo
 from repro_torch.kernels import _build, ref
 
 KERNEL = _build.Kernel("delta_encode")
@@ -67,6 +68,7 @@ def _launch(x: torch.Tensor, h: Optional[torch.Tensor], s_hat: torch.Tensor,
     return delta, nnz
 
 
+@hlo.kernel_region("delta_encode")
 def delta_encode(
     x: torch.Tensor, x_hat: torch.Tensor, theta: float,
     act_bits: Optional[int] = None, act_frac_bits: int = 8,
@@ -81,6 +83,7 @@ def delta_encode(
     return delta, new_x_hat, nnz
 
 
+@hlo.kernel_region("delta_encode")
 def delta_encode_step(
     x: torch.Tensor, h: torch.Tensor, s_hat: torch.Tensor, theta: float,
     active: Optional[torch.Tensor] = None, act_bits: Optional[int] = None,

@@ -16,6 +16,7 @@ from typing import Optional, Tuple
 
 import torch
 
+from repro_torch.analysis import hlo
 from repro_torch.kernels import _build, ref
 
 KERNEL = _build.Kernel("lstm_pointwise")
@@ -27,6 +28,7 @@ _DTYPES = {"dm": _F32, "y": _F32, "c": _F32, "h": _F32,
            "active": torch.bool}
 
 
+@hlo.kernel_region("lstm_pointwise")
 def lstm_pointwise(dm: torch.Tensor, c: torch.Tensor
                    ) -> Tuple[torch.Tensor, torch.Tensor]:
     """dm [B, 4, H], c [B, H] float32 -> (h [B, H], c' [B, H])."""
@@ -46,6 +48,7 @@ def lstm_pointwise(dm: torch.Tensor, c: torch.Tensor
     return h_out, c_out
 
 
+@hlo.kernel_region("lstm_pointwise")
 def lstm_pointwise_step(dm: torch.Tensor, y: torch.Tensor, c: torch.Tensor,
                         h: torch.Tensor, active: Optional[torch.Tensor] = None
                         ) -> torch.Tensor:

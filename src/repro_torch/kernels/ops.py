@@ -1,14 +1,19 @@
 """Public wrappers the engines call — port of ``repro/kernels/ops.py``.
 
-The delta encoder, the pointwise HPE math and the CBCSC SpMV go through
-the kernel modules (a CUDA kernel for a CUDA tensor, the plain PyTorch
-version for a CPU tensor).  The rest is plain PyTorch in both places, as
-it was XLA (not Pallas) in the reference:
+The delta encoder, the pointwise HPE math, the CBCSC SpMV and the
+dense-mirror product go through the kernel modules (a CUDA kernel for a
+CUDA tensor, the plain PyTorch version for a CPU tensor).  The rest is
+plain PyTorch in both places, as it was XLA (not Pallas) in the
+reference:
 
 * ``select_active_columns[_batch]`` — the fixed-capacity NZI list builder;
-* ``delta_spmv_dense_topk_batch`` — capacity clip + one GEMM against the
-  pack-time dense mirror (accumulated in float64, see ``_mirror_matmul``);
+* ``delta_spmv_dense_topk_batch`` — capacity clip + the dense-mirror
+  product (``kernels/dense_mirror.py``, batch-invariant: see
+  ``_mirror_matmul``);
 * the frame gather and the logits bank/gather of the chunked pool.
+
+The functions the reference declares hot-path contracts on carry the
+same declarations (``repro_torch.analysis.contracts``).
 
 Nothing here syncs with the host, so a chunk of frames stays capturable
 as a CUDA graph.  Unlike the reference's ``ops``, the pool entry points
@@ -20,7 +25,9 @@ from typing import Optional, Tuple
 
 import torch
 
+from repro_torch.analysis.contracts import hotpath_contract
 from repro_torch.kernels import delta_encode as _de
+from repro_torch.kernels import dense_mirror as _dm
 from repro_torch.kernels import lstm_pointwise as _lp
 from repro_torch.kernels import stsp_spmv as _sp
 
@@ -131,6 +138,7 @@ def spmv_use_dense_gather(s: int, gamma: float) -> bool:
     return s * (1.0 - gamma) >= 1.0
 
 
+@hotpath_contract("stsp_spmv_batch")
 def stsp_spmv_batch(val: torch.Tensor, lidx: torch.Tensor, idx: torch.Tensor,
                     ds_vals: torch.Tensor, *, s: int,
                     scale: Optional[torch.Tensor] = None) -> torch.Tensor:
@@ -141,22 +149,21 @@ def stsp_spmv_batch(val: torch.Tensor, lidx: torch.Tensor, idx: torch.Tensor,
     return y if scale is None else y * scale
 
 
-def _mirror_matmul(ds: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
-    """ds [B, Q] @ w [Q, H] -> float32 [B, H], accumulated in float64.
+def _mirror_matmul(ds: torch.Tensor, w: torch.Tensor,
+                   scale: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """ds [B, Q] @ w [Q, H] (float32 or int8, as packed) -> float32
+    [B, H], then ``* scale``: the dense-mirror kernel.
 
-    The dense-mirror GEMM sits inside the recurrence, where a last-bit
-    difference can flip a later delta threshold.  cuBLAS picks another
-    fp32 reduction order for another row count (B=1 vs B=16 rows differ by
+    The product sits inside the recurrence, where a last-bit difference
+    can flip a later delta threshold.  cuBLAS picks another fp32
+    reduction order for another row count (B=1 vs B=16 rows differ by
     ~4e-6 at the 2x1024 model's shapes, and the pool then drifts 0.5 from
-    the batch-1 engine in logits), so an fp32 product would make a
-    session's output depend on the pool around it.  Every fp32 product is
-    exact in float64, and the float64 sum carries ~29 more bits than the
-    float32 it rounds to, so the result no longer depends on the order
-    (barring a near-tie at the final rounding): measured bit-identical
-    for 1, 2, 16 and 32 rows, and between the CPU and the card.  The fp32
-    pack stores its mirror in float64 already, so only the int8 mirror
-    and the [B, Q] deltas widen here."""
-    return (ds.to(torch.float64) @ w.to(torch.float64)).to(torch.float32)
+    the batch-1 engine in logits), so an fp32 GEMM would make a session's
+    output depend on the pool around it.  The kernel sums every row in
+    float64 registers in an order fixed by Q alone and rounds once, so a
+    row is the same for 1, 16 or 32 rows and on the host and the card;
+    the mirror stays at its packed dtype and no float64 tensor exists."""
+    return _dm.dense_mirror(ds, w, scale)
 
 
 def _clip_to_capacity(delta: torch.Tensor, k: int) -> torch.Tensor:
@@ -175,6 +182,8 @@ def _clip_to_capacity(delta: torch.Tensor, k: int) -> torch.Tensor:
     return torch.where(keep, delta, torch.zeros_like(delta))
 
 
+@hotpath_contract("delta_spmv_dense_topk", forbid_ops=("transpose",),
+                  op_budget={"dot": 1, "sort": 1})
 def delta_spmv_dense_topk_batch(wt: torch.Tensor, delta: torch.Tensor,
                                 capacity: int,
                                 scale: Optional[torch.Tensor] = None
@@ -191,10 +200,7 @@ def delta_spmv_dense_topk_batch(wt: torch.Tensor, delta: torch.Tensor,
     n_fired = (delta != 0).sum(-1, dtype=torch.int32)
     n_dropped = torch.clamp(n_fired - capacity, min=0)
     ds = delta if k >= q else _clip_to_capacity(delta, k)
-    y = _mirror_matmul(ds, wt)
-    if scale is not None:
-        y = y * scale
-    return y, n_dropped
+    return _mirror_matmul(ds, wt, scale), n_dropped
 
 
 def delta_spmv_dense_gather_batch(w: torch.Tensor, idx: torch.Tensor,
@@ -207,9 +213,10 @@ def delta_spmv_dense_gather_batch(w: torch.Tensor, idx: torch.Tensor,
     ds_dense = torch.zeros((b, w.shape[1]), dtype=torch.float32,
                            device=w.device)
     ds_dense.scatter_add_(1, idx.long(), ds_vals.to(torch.float32))
-    return _mirror_matmul(ds_dense, w.T)
+    return _mirror_matmul(ds_dense, w.T.contiguous())
 
 
+@hotpath_contract("gather_frames", op_budget={"gather": 1})
 def gather_frames(frames: torch.Tensor, cursor: torch.Tensor) -> torch.Tensor:
     """Each slot's current frame: frames [B, T_buf, D], cursor [B] ->
     x [B, D].  The cursor is clamped to the buffer; rows of slots past
@@ -225,16 +232,28 @@ def _window(buf: torch.Tensor, start: torch.Tensor, n: int):
     return rows, cols
 
 
+@hotpath_contract("bank_rows", forbid_ops=("scatter",),
+                  op_budget={"dynamic-update-slice": 1})
 def bank_rows(buf: torch.Tensor, rows: torch.Tensor,
               start: torch.Tensor) -> torch.Tensor:
     """Bank one chunk's logits in place: buf [B, T_pad, C], rows [N, B, C]
     -> slot b's rows land at ``buf[b, start[b] : start[b]+N]``.  The
-    caller guarantees ``start[b] + N <= T_pad``."""
-    r, c = _window(buf, start, rows.shape[0])
-    buf[r, c] = rows.transpose(0, 1)
+    caller guarantees ``start[b] + N <= T_pad``.
+
+    One ``index_copy_`` of the rows, in their own [N, B] order, onto the
+    flat (slot, frame) rows of ``buf``: the windows are disjoint, so it is
+    a plain update (no scatter, no transposed copy of ``rows``)."""
+    n, b, c = rows.shape
+    t_pad = buf.shape[1]
+    slot = torch.arange(b, device=buf.device) * t_pad + start.long()
+    flat = (torch.arange(n, device=buf.device)[:, None] + slot[None]
+            ).reshape(-1)
+    buf.view(b * t_pad, c).index_copy_(0, flat, rows.reshape(n * b, c))
     return buf
 
 
+@hotpath_contract("gather_rows",
+                  forbid_ops=("scatter", "dynamic-update-slice"))
 def gather_rows(buf: torch.Tensor, start: torch.Tensor, n: int
                 ) -> torch.Tensor:
     """Inverse of ``bank_rows``: rows [B, n, C] with row b =

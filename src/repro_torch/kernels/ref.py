@@ -145,3 +145,18 @@ def stsp_spmv_scatter_batch_ref(val: torch.Tensor, lidx: torch.Tensor,
     rows = lidx[cols].to(torch.int32) * m + pe               # [B, K, M, BLEN]
     y = torch.zeros((b, s * m), dtype=torch.float32, device=val.device)
     return y.scatter_add_(1, rows.reshape(b, -1).long(), v.reshape(b, -1))
+
+
+def dense_mirror_ref(ds: torch.Tensor, wt: torch.Tensor,
+                     scale: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """The dense-mirror product: ds [B, Q] float32 @ wt [Q, N] (float32
+    or int8) -> y [B, N] float32, accumulated in float64 and rounded once,
+    then ``y * scale`` in float32 (an int8 mirror's dequantization).
+
+    Every product is exact in float64 and the float64 sum carries ~29
+    more bits than the float32 it rounds to, so the result does not
+    depend on the order of the sum (barring a near-tie at the final
+    rounding): a row's value is the same whatever rows share the
+    product, on the host and on the card."""
+    y = (ds.to(torch.float64) @ wt.to(torch.float64)).to(torch.float32)
+    return y if scale is None else y * scale

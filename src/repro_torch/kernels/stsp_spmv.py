@@ -22,6 +22,7 @@ from __future__ import annotations
 
 import torch
 
+from repro_torch.analysis import hlo
 from repro_torch.kernels import _build, ref
 
 SCATTER_BATCH_KERNEL = _build.Kernel("stsp_spmv_scatter_batch")
@@ -62,6 +63,7 @@ def _launch(kernel: _build.Kernel, val: torch.Tensor, lidx: torch.Tensor,
     return y
 
 
+@hlo.kernel_region("stsp_spmv_scatter_batch")
 def stsp_spmv_scatter_batch(val: torch.Tensor, lidx: torch.Tensor,
                             idx: torch.Tensor, ds_vals: torch.Tensor, *,
                             s: int) -> torch.Tensor:
@@ -71,6 +73,7 @@ def stsp_spmv_scatter_batch(val: torch.Tensor, lidx: torch.Tensor,
     return _launch(SCATTER_BATCH_KERNEL, val, lidx, idx, ds_vals, s)
 
 
+@hlo.kernel_region("stsp_spmv")
 def stsp_spmv(val: torch.Tensor, lidx: torch.Tensor, idx: torch.Tensor,
               ds_vals: torch.Tensor, *, s: int) -> torch.Tensor:
     """One session: idx int32 / ds_vals float32 [K] -> y [S*M]."""

@@ -43,6 +43,7 @@ import numpy as np
 import torch
 
 from repro_torch._device import DeviceLike, HostCopy, upload
+from repro_torch.analysis.contracts import hotpath_contract
 from repro_torch.kernels import ops
 from repro_torch.models.lstm_am import LSTMAMConfig
 from repro_torch.serving import telemetry as tele
@@ -190,6 +191,8 @@ class BatchedSpartusEngine(PackedSpartusModel):
         x = self._dev(x, torch.float32).contiguous()
         return state, self._step_core(state, x, active, state.cursor.clone())
 
+    @hotpath_contract("step_frames", donates=("state",),
+                      op_budget={"transpose": 0})
     def step_frames(self, state: PoolState, frames: torch.Tensor, active,
                     reset=None) -> Tuple[PoolState, torch.Tensor]:
         """Advance every active slot one frame from device-resident
@@ -201,6 +204,8 @@ class BatchedSpartusEngine(PackedSpartusModel):
         new_cur = state.cursor + active.to(torch.int32)
         return state, self._step_core(state, x, active, new_cur)
 
+    @hotpath_contract("step_chunk", donates=("state", "out_buf"),
+                      op_budget={"transpose": 0, "dynamic-update-slice": 8})
     def step_chunk(self, state: PoolState, frames: torch.Tensor, lengths,
                    active, reset, out_buf: torch.Tensor, *, n_frames: int
                    ) -> Tuple[PoolState, torch.Tensor]:

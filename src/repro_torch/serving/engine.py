@@ -54,9 +54,9 @@ class PackedLayer:
     hidden_dim: int
     capacity: int              # NZI list capacity
     pack_overflow: int = 0     # nonzeros clipped enforcing BLEN at pack time
-    # [D+H, 4H] pre-transposed dense mirror (dense SpMV route): float64
-    # in the fp32 pack (the type the mirror GEMM accumulates in, widened
-    # once here rather than per step), int8 in the quantized pack
+    # [D+H, 4H] pre-transposed dense mirror (dense SpMV route): float32
+    # in the fp32 pack, int8 in the quantized pack; the dense-mirror
+    # kernel widens it in registers (see ops._mirror_matmul)
     w_dense_t: Optional[torch.Tensor] = None
 
     def to(self, device: torch.device) -> "PackedLayer":
@@ -131,8 +131,6 @@ def pack_lstm_layer(params: Dict[str, Any], cfg: EngineConfig) -> PackedLayer:
             enc, val=torch.round(enc.val / scale).to(torch.int8), lidx=lidx)
         if w_dense_t is not None:
             w_dense_t = torch.round(w_dense_t / scale).to(torch.int8)
-    elif w_dense_t is not None:
-        w_dense_t = w_dense_t.to(torch.float64)     # see ops._mirror_matmul
     return PackedLayer(
         enc=enc, scale=scale, bias=params["b"],
         input_dim=w.shape[1] - params["w_h"].shape[1],
@@ -197,8 +195,8 @@ class PackedSpartusModel:
 
     def weight_bytes(self) -> int:
         """Bytes of packed weight memory at rest: CBCSC payloads (val +
-        lidx + valid), dense mirrors (8 bytes a weight in the fp32 pack),
-        biases, scales and the head."""
+        lidx + valid), dense mirrors (4 bytes a weight in the fp32 pack,
+        1 in the int8 pack), biases, scales and the head."""
         total = 0
         for l in self.layers:
             total += tensor_nbytes(l.enc.val) + tensor_nbytes(l.enc.lidx)

@@ -17,6 +17,8 @@ from typing import Dict, NamedTuple, Sequence
 import numpy as np
 import torch
 
+from repro_torch.analysis.contracts import hotpath_contract
+
 
 class TelemetryState(NamedTuple):
     """Per-(layer, slot) accumulators over (active slot, frame) samples
@@ -55,6 +57,9 @@ def percentile_summary(values: Sequence[float], name: str,
     return {f"p{q}_{name}": float(np.percentile(arr, q)) for q in qs}
 
 
+@hotpath_contract("fold_totals",
+                  forbid_ops=("dot", "gather", "scatter",
+                              "dynamic-update-slice"))
 def fold_totals(tel: TelemetryState, n_cols: torch.Tensor) -> torch.Tensor:
     """The three running totals on device, no host sync:
     ``[sum_l nnz_sum_l / n_cols_l, overflow.sum(), steps.sum()]``.

@@ -17,6 +17,7 @@ import torch
 
 from repro_torch.core import apply_cbtd, blen_for, cbcsc_encode
 from repro_torch.kernels import delta_encode as de
+from repro_torch.kernels import dense_mirror as dm
 from repro_torch.kernels import lstm_pointwise as lp
 from repro_torch.kernels import ops
 from repro_torch.kernels import stsp_spmv as sp
@@ -256,6 +257,58 @@ def test_stsp_spmv_kernel_edges_exact(cuda, h, q, m, gamma, b, offset,
     assert torch.equal(one.cpu(), want[b - 1])
 
 
+
+def _ulp_report(got, want):
+    """How many elements differ, and by at most how many ulps."""
+    diff = (got.view(torch.int32).long() - want.view(torch.int32).long())
+    n = int((got != want).sum())
+    return f"{n} of {got.numel()} elements differ, by <= " \
+        f"{int(diff.abs().max())} ulp"
+
+
+@pytest.mark.parametrize("q", [1147, 2048])
+@pytest.mark.parametrize("payload", ["fp32", "int8"])
+def test_dense_mirror_kernel_equals_plain(cuda, q, payload):
+    """The dense-mirror kernel at the 2x1024 model's layer shapes (Q =
+    D+H, N = 4H = 4096), ~30% of the deltas fired, equals its plain
+    float64 product on the card and on the host at B = 1, 16 and 32, and
+    each row equals the same row computed alone."""
+    n = 4096
+    g = _gen(q)
+    fired = torch.rand((32, q), generator=g) < 0.3
+    ds = torch.where(fired, torch.randn((32, q), generator=g), 0.0)
+    wt = 0.05 * torch.randn((q, n), generator=g)
+    scale = None
+    if payload == "int8":
+        scale = torch.tensor(2.0 ** -7)
+        wt = torch.clamp(torch.round(wt / scale), -127, 127).to(torch.int8)
+    d_wt = wt.to(cuda)
+    d_scale = None if scale is None else scale.to(cuda)
+    alone = [dm.dense_mirror(ds[i:i + 1].to(cuda), d_wt, d_scale).cpu()
+             for i in range(32)]
+    for b in (1, 16, 32):
+        before = dm.KERNEL.launches
+        got = dm.dense_mirror(ds[:b].to(cuda), d_wt, d_scale)
+        assert dm.KERNEL.launches == before + 1
+        for want in (dm.plain(ds[:b].to(cuda), d_wt, d_scale).cpu(),
+                     dm.plain(ds[:b], wt, scale)):
+            assert torch.equal(got.cpu(), want), _ulp_report(got.cpu(), want)
+        assert torch.equal(got.cpu(), torch.cat(alone[:b]))
+
+
+def test_dense_mirror_kernel_edges(cuda):
+    """Ragged shapes (Q and N off the kernel's tiles), a row group of 3,
+    all-zero rows and a batch beyond one row group."""
+    g = _gen(7)
+    for b, q, n in ((3, 37, 50), (17, 300, 96), (1, 0, 64), (5, 64, 1)):
+        ds = torch.randn((b, q), generator=g)
+        if b > 1:
+            ds[1] = 0.0
+        wt = torch.randn((q, n), generator=g)
+        got = dm.dense_mirror(ds.to(cuda), wt.to(cuda))
+        assert torch.equal(got.cpu(), dm.plain(ds, wt))
+
+
 def test_kernel_wrappers_reject_what_the_kernels_do_not_take(cuda):
     x = torch.zeros((2, 8), device=cuda)
     with pytest.raises(TypeError):
@@ -280,6 +333,10 @@ def test_kernel_wrappers_reject_what_the_kernels_do_not_take(cuda):
     with pytest.raises(ValueError, match="rows per PE"):
         sp.stsp_spmv_scatter_batch(val.float(), lidx, idx, idx.float(),
                                    s=sp.MAX_S + 1)
+    with pytest.raises(TypeError, match="float32 or int8"):
+        dm.dense_mirror(x, x.T.contiguous().half())
+    with pytest.raises(ValueError, match="wt \\[Q, N\\]"):
+        dm.dense_mirror(x, x)
 
 
 @pytest.mark.parametrize("route", ["scatter", "dense"])
@@ -615,3 +672,25 @@ def test_train_step_on_card_matches_host(cuda):
     loss_h, _ = loss_and_grads(params, cfg, batch)
     loss_c, _ = loss_and_grads(_to(params, cuda), cfg, _to(batch, cuda))
     assert abs(float(loss_c) - float(loss_h)) <= 1e-4 * abs(float(loss_h))
+
+
+@pytest.mark.parametrize("width", ["test", "full"])
+def test_contract_cases_on_card(cuda, width):
+    """Every contract case on the card, each traced call under sync debug
+    mode "error": zero violations, the same op histogram as on the host
+    at test scale."""
+    from repro_torch.analysis import cases, contracts
+
+    host = {c.name: contracts.check_case(c)
+            for c in (cases.build_cases(device="cpu")
+                      + cases.served_cases(device="cpu"))} \
+        if width == "test" else {}
+    for case in (cases.build_cases(width=width, device=cuda)
+                 + cases.served_cases(width=width, device=cuda)):
+        built = case.build()
+        torch.cuda.synchronize()
+        with _NoSync():
+            report = contracts.check_built(case, built)
+        assert report.ok, [str(v) for v in report.violations]
+        if case.name in host:
+            assert report.op_histogram == host[case.name].op_histogram

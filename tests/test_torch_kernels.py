@@ -297,7 +297,8 @@ def test_dense_topk_batch_vs_reference(capacity, int8):
 
 def test_dense_mirror_gemm_is_batch_invariant():
     """A session's SpMV result does not depend on how many rows share the
-    GEMM (the reason the mirror product accumulates in float64)."""
+    product (the reason the mirror product is a kernel of its own that
+    accumulates in float64)."""
     rng = np.random.default_rng(0)
     wt = _t((rng.standard_normal((300, 96)) * 0.3).astype(np.float32))
     delta = _t(_tied_delta(4, 16, 300, frac=0.6) * 3)

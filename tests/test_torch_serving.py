@@ -53,14 +53,6 @@ def _configs(route, quant=False, capacity_frac=1.0):
             TConfig(quant=TQuant() if quant else None, **kw))
 
 
-def _mirror_widening(engine):
-    """Bytes the fp32 pack adds over the reference's by storing its dense
-    mirrors in float64 (8 bytes a weight instead of 4)."""
-    return sum(4 * l.w_dense_t.numel() for l in engine.layers
-               if l.w_dense_t is not None
-               and l.w_dense_t.dtype == torch.float64)
-
-
 def _feats(seed, t):
     return np.random.default_rng(seed).standard_normal(
         (t, INPUT_DIM)).astype(np.float32)
@@ -86,13 +78,11 @@ def test_packed_arrays_bit_equal(model, route, quant):
             np.testing.assert_array_equal(np.asarray(jl.w_dense_t),
                                           tl.w_dense_t.numpy())
             assert tl.w_dense_t.dtype == (torch.int8 if quant
-                                          else torch.float64)
+                                          else torch.float32)
         assert (jl.capacity, jl.pack_overflow, jl.input_dim, jl.hidden_dim) \
             == (tl.capacity, tl.pack_overflow, tl.input_dim, tl.hidden_dim)
-    widening = _mirror_widening(te)
-    assert (widening > 0) == (route == "dense" and not quant)
-    assert te.weight_bytes() == je.weight_bytes() + widening
-    assert te.weight_payload_bytes() == je.weight_payload_bytes() + widening
+    assert te.weight_bytes() == je.weight_bytes()
+    assert te.weight_payload_bytes() == je.weight_payload_bytes()
     assert te.pack_overflow_count() == je.pack_overflow_count()
     assert te.weight_sparsity() == pytest.approx(je.weight_sparsity(),
                                                  abs=1e-12)
@@ -103,10 +93,7 @@ def test_quant_payload_is_four_times_smaller(model, route):
     params, jcfg, tparams, tcfg = model
     fp = TEngine(tparams, tcfg, _configs(route)[1], device="cpu")
     q8 = TEngine(tparams, tcfg, _configs(route, quant=True)[1], device="cpu")
-    # the int8 pack against the fp32 pack in the reference's layout (the
-    # port's fp32 mirror sits in float64, 8 bytes a weight)
-    assert fp.weight_payload_bytes() - _mirror_widening(fp) \
-        == 4 * q8.weight_payload_bytes()
+    assert fp.weight_payload_bytes() == 4 * q8.weight_payload_bytes()
 
 
 def test_spmv_path_validated(model):
@@ -177,7 +164,7 @@ def test_serve_requests_matches_reference(model, route, capacity, chunk,
               "capacity", "n_requests"):
         assert getattr(ts, f) == getattr(js, f), f
     assert round(ts.bytes_per_slot * ts.capacity) == \
-        round(js.bytes_per_slot * js.capacity) + _mirror_widening(te)
+        round(js.bytes_per_slot * js.capacity)
     for k, v in js.sparsity.items():
         assert ts.sparsity[k] == pytest.approx(v, abs=1e-7)
     if max_steps is not None:
