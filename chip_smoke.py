@@ -94,7 +94,24 @@ Phases; any failure exits non-zero before a result line is printed:
    against the CPU (1e-4) and DeltaGRU at theta 0 against the GRU;
    ``repro_torch.examples.delta_transformer_decode`` at its published
    sizes.
-7. Prints ``{"kernels": [...]}`` and then, as the last line,
+7. The model zoo (``repro_torch.models.api``, plain PyTorch ops: the
+   reference's zoo reaches no Pallas kernel, and none of the five
+   kernels launches here).  ``qwen2-0.5b``, ``granite-moe-1b-a400m``,
+   ``mamba2-130m`` and ``seamless-m4t-medium`` at full width, fp32
+   weights drawn on the card from a seeded generator: 32 greedy decode
+   steps at B=4 with a 128-slot cache through ``api.serve_step`` (as the
+   launcher's ``serve_arch``), ms/token, device launches and busy share
+   of one profiled step, and the step's weight-byte bound; logits finite
+   and changing across steps.  Decode stepped over 8 tokens at B=1
+   against the teacher-forced forward at the reference test's gate (rtol
+   2e-2, atol 2e-3) for the dense, ssm and audio models; the forward
+   (B=1, 8 tokens) on the card against the CPU within 1e-4 of max|logits|
+   for qwen2 and granite-moe (a MoE token routed apart by a router
+   near-tie is reported with its layer).  Then all ten registry archs at
+   ``.reduced()``, card vs CPU (forward over 16 tokens, 8 decode steps,
+   1e-4 relative), and the launcher's ``--arch qwen2-0.5b --batch 4
+   --steps 32`` as a subprocess.  JSON: ``<out>/chip_smoke_zoo.json``.
+8. Prints ``{"kernels": [...]}`` and then, as the last line,
    ``{"ok": true, "device": {...}}``.
 
 It imports nothing of JAX and nothing of the JAX package ``repro``.
@@ -132,6 +149,27 @@ TRAIN_BATCH, TRAIN_FRAMES, TRAIN_STEPS_PER_EPOCH = 16, 64, 5
 PRETRAIN_EPOCHS, RETRAIN_EPOCHS, DELTA_ALPHA = 3, 1, 0.5
 TRAINED_ROUTES = ("auto", "scatter")
 MIRROR_BATCHES = (1, 16, 32)
+ZOO_FULL = ("qwen2-0.5b", "granite-moe-1b-a400m", "mamba2-130m",
+            "seamless-m4t-medium")
+ZOO_DECODE_CHECKED = ("qwen2-0.5b", "mamba2-130m", "seamless-m4t-medium")
+ZOO_CPU_CHECKED = ("qwen2-0.5b", "granite-moe-1b-a400m")
+ZOO_BATCH, ZOO_CTX, ZOO_STEPS = 4, 128, 32
+ZOO_CHECK_TOKENS, ZOO_ENC_FRAMES = 8, 12
+ZOO_REDUCED_TOKENS, ZOO_REDUCED_STEPS = 16, 8
+ZOO_DECODE_RTOL, ZOO_DECODE_ATOL = 2e-2, 2e-3   # tests/test_arch_smoke.py
+ZOO_NEAR_TIE = 1e-4
+SPARTUS_LAUNCHES = (
+    (["--spartus", "--async", "--pool", "16", "--chunk-frames", "16",
+      "--clients", "8", "--hidden", "1024", "--admin-port", "0"],
+     ["8 concurrent TCP clients served"]),
+    (["--spartus", "--pool", "4", "--requests", "8", "--chunk-frames", "16"],
+     ["[serve] pool(4, chunked x16): 8 sessions", "pack overflow",
+      "modelled Spartus latency"]),
+)
+ARCH_LAUNCHES = (
+    (["--arch", "qwen2-0.5b", "--batch", "4", "--steps", "32"],
+     ["[serve] qwen2-0.5b: 32 steps batch=4 -> "]),
+)
 
 
 class SmokeFailure(RuntimeError):
@@ -1552,6 +1590,345 @@ def transformer_example(torch):
     return rows
 
 
+# -- phase 7: the model zoo ----------------------------------------------------
+
+
+def zoo_logits(cfg, params, x, toks=None):
+    """The family's teacher-forced logits [B, S, V] over ``x`` (tokens;
+    embeddings for vlm; encoder frames for audio, whose decoder reads
+    ``toks``)."""
+    from repro_torch.models import encdec, mamba2, rglru, transformer
+
+    if cfg.family in ("dense", "moe"):
+        return transformer.forward(params, cfg, x)
+    if cfg.family == "vlm":
+        return transformer.forward(params, cfg, None, inputs_embeds=x)
+    if cfg.family == "ssm":
+        return mamba2.forward(params, cfg, x)
+    if cfg.family == "hybrid":
+        return rglru.forward(params, cfg, x)
+    return encdec.decode_train(params, cfg, toks,
+                               encdec.encode(params, cfg, x))
+
+
+def zoo_inputs(torch, cfg, batch, seq, gen):
+    """Seeded inputs of ``zoo_logits`` and of ``seq`` decode steps, on the
+    generator's device: (x, decoder tokens or None, step inputs)."""
+    dev = gen.device
+    toks = torch.randint(0, cfg.vocab, (batch, seq), generator=gen,
+                         device=dev, dtype=torch.int32)
+    if cfg.family == "vlm":
+        x = torch.randn((batch, seq, cfg.d_model), generator=gen, device=dev)
+        return x, None, [x[:, i:i + 1] for i in range(seq)]
+    steps = [toks[:, i:i + 1] for i in range(seq)]
+    if cfg.family == "audio":
+        frames = torch.randn((batch, ZOO_ENC_FRAMES, cfg.d_model),
+                             generator=gen, device=dev)
+        return frames, toks, steps
+    return toks, None, steps
+
+
+def zoo_decode(torch, cfg, params, cache, steps):
+    """Logits [B, n, V] of decode steps fed ``steps`` in turn."""
+    from repro_torch.models import api
+
+    outs = []
+    for inp in steps:
+        logits, cache = api.serve_step(params, cfg, inp, cache)
+        outs.append(logits[:, 0])
+    return torch.stack(outs, 1), cache
+
+
+def zoo_cache(cfg, params, batch, s_cache, frames, device):
+    """A zero decode cache; for the audio family, the cross-KV built from
+    ``frames`` (``prefill``)."""
+    from repro_torch.models import api
+
+    if cfg.family != "audio":
+        return api.init_cache(cfg, batch, s_cache, device=device)
+    cache = api.init_cache(cfg, batch, frames.shape[1], device=device)
+    cache["cross"] = api.prefill(params, cfg, frames)
+    return cache
+
+
+def rel_err(got, want) -> float:
+    """max|got - want| over max|want|."""
+    return max_err(got.cpu(), want.cpu()) / float(want.abs().max())
+
+
+class RouteRecorder:
+    """Records every MoE routing decision (``layers.lax_top_k``'s input
+    and chosen experts) while it is entered, in call order: one entry per
+    MoE layer per call."""
+
+    def __init__(self):
+        self.calls = []
+
+    def __enter__(self):
+        from repro_torch.models import layers
+
+        self._orig = layers.lax_top_k
+
+        def recorded(x, k):
+            out = self._orig(x, k)
+            self.calls.append((x.detach(), out[1].detach()))
+            return out
+
+        layers.lax_top_k = recorded
+        return self
+
+    def __exit__(self, *exc):
+        from repro_torch.models import layers
+
+        layers.lax_top_k = self._orig
+
+
+def routing_flips(torch, card, host, top_k):
+    """Tokens routed to other experts on the card than on the host:
+    ``[{"layer", "token", "gap"}]``, ``gap`` being the host's router
+    probability between its k-th and (k+1)-th expert (a near-tie when
+    small)."""
+    flips = []
+    for layer, ((_, ic), (ph, ih)) in enumerate(zip(card.calls, host.calls)):
+        same = (torch.sort(ic.cpu(), -1).values
+                == torch.sort(ih, -1).values).all(-1)            # [B, S]
+        for b, s in (~same).nonzero().tolist():
+            p = torch.sort(ph[b, s], descending=True).values
+            flips.append({"layer": layer, "row": b, "token": s,
+                          "gap": float(p[top_k - 1] - p[top_k])})
+    return flips
+
+
+def zoo_step_bytes(cfg, params, batch, experts_hit=None) -> int:
+    """Weight bytes a decode step reads at least, each once: every leaf
+    it uses, the embedding table only for the ``batch`` rows it gathers
+    (all of it where it is also the head), no encoder weights nor the
+    cross-attention's k/v projections (their product is the cached
+    cross-KV), and a MoE layer's experts only those its tokens were
+    routed to (``experts_hit[layer]``).  The cache is left out."""
+    from repro_torch import _tree
+
+    total = 0
+    for path, leaf in _tree.leaves_with_path(params):
+        n = leaf.numel() * leaf.element_size()
+        if path == "embed" and not cfg.tie_embeddings:
+            n = batch * cfg.d_model * leaf.element_size()
+        elif path.startswith(("enc_layers", "enc_norm",
+                              "dec_layers/cross_attn/k",
+                              "dec_layers/cross_attn/v")):
+            n = 0
+        elif experts_hit is not None and path.startswith(
+                ("layers/moe/gate", "layers/moe/up", "layers/moe/down")):
+            per_expert = n // (cfg.n_layers * cfg.n_experts)
+            n = per_expert * sum(experts_hit)
+        total += n
+    return total
+
+
+def zoo_serve(torch, cfg, params, seed):
+    """``serve_arch``'s loop at full width: B=4, a 128-slot cache, one
+    warm-up step, then 32 greedy steps timed (host clock, ending in a
+    sync; torch's sync debug mode at "error", so a step that waits on the
+    card fails); then one more step under torch.profiler (device
+    launches, busy share, the kernels that take the most device time)
+    and one with its routing recorded (the experts a MoE step reads).
+    Checks finite logits that change across steps."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.models import api
+
+    dev = params["embed"].device
+    cache = api.init_cache(cfg, ZOO_BATCH, ZOO_CTX, device=dev)
+    toks = torch.zeros((ZOO_BATCH, 1), dtype=torch.int32, device=dev)
+    with torch.inference_mode():
+        logits, cache = api.serve_step(params, cfg, toks, cache)
+        torch.cuda.synchronize()
+        outs = []
+        t0 = time.perf_counter()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            for _ in range(ZOO_STEPS):
+                logits, cache = api.serve_step(params, cfg, toks, cache)
+                toks = torch.argmax(logits, dim=-1).to(torch.int32)
+                outs.append(logits[:, 0])
+        except RuntimeError as exc:
+            raise SmokeFailure(f"{cfg.name}: a device sync in a decode "
+                               f"step: {exc}")
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+        torch.cuda.synchronize()
+        dt = (time.perf_counter() - t0) / ZOO_STEPS
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            api.serve_step(params, cfg, toks, cache)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        with RouteRecorder() as rec:
+            api.serve_step(params, cfg, toks, cache)
+    outs = torch.stack(outs, 1)
+    check(bool(torch.isfinite(outs).all()),
+          f"{cfg.name}: non-finite logits in decode")
+    spread = float((outs - outs[:, :1]).abs().max())
+    check(spread > 0, f"{cfg.name}: logits constant across {ZOO_STEPS} steps")
+    events = sorted((e for e in prof.key_averages()
+                     if self_device_us(e) > 0), key=lambda e: -self_device_us(e))
+    busy = sum(self_device_us(e) for e in events) / 1e6
+    hit = ([int(ids.unique().numel()) for _, ids in rec.calls]
+           if cfg.family == "moe" else None)
+    n_bytes = zoo_step_bytes(cfg, params, ZOO_BATCH, hit)
+    return {"ms_per_token": dt * 1e3, "tok_per_s": ZOO_BATCH / dt,
+            "profiled_step_wall_ms": wall * 1e3,
+            "device_busy_ms": busy * 1e3,
+            "device_busy_share": busy / wall,
+            "device_launches_per_step": sum(e.count for e in events),
+            "step_bytes": n_bytes, "bound_ms": bound_ms(n_bytes),
+            "experts_hit_per_layer": hit,
+            "logit_spread_across_steps": spread,
+            "by_kernel": [{"name": e.key[:90], "device_ms":
+                           self_device_us(e) / 1e3, "count": e.count}
+                          for e in events[:6]]}
+
+
+def zoo_decode_vs_forward(torch, cfg, params, seed):
+    """The reference test's gate (``tests/test_arch_smoke.py``): decode
+    stepped over 8 tokens at B=1 against the teacher-forced forward
+    (audio: ``decode_train`` against stepped ``decode_step`` on
+    ``build_cross_cache``), rtol 2e-2, atol 2e-3.  Returns max|diff|."""
+    dev = params["embed"].device
+    gen = torch.Generator(dev).manual_seed(seed)
+    with torch.inference_mode():
+        x, toks, steps = zoo_inputs(torch, cfg, 1, ZOO_CHECK_TOKENS, gen)
+        full = zoo_logits(cfg, params, x, toks)
+        cache = zoo_cache(cfg, params, 1, ZOO_CHECK_TOKENS,
+                          x if cfg.family == "audio" else None, dev)
+        stepped, _ = zoo_decode(torch, cfg, params, cache, steps)
+    check(torch.allclose(stepped, full, rtol=ZOO_DECODE_RTOL,
+                         atol=ZOO_DECODE_ATOL),
+          f"{cfg.name}: decode departs from the forward by "
+          f"{max_err(stepped, full)}")
+    return max_err(stepped, full)
+
+
+def zoo_card_vs_cpu(torch, cfg, params, seed):
+    """The forward at B=1 over 8 tokens on the card against the same
+    weights through the same code on the CPU: max|diff| <= 1e-4 *
+    max|logits|.  A MoE token routed to other experts on the two (a
+    near-tie in the router) is reported with its layer; the gate then
+    holds over the tokens before the first such token, which it cannot
+    reach."""
+    from repro_torch import _tree
+
+    gen = torch.Generator(params["embed"].device).manual_seed(seed + 1)
+    host = _tree.tree_map(lambda a: a.cpu(), params)
+    with torch.inference_mode():
+        x, toks, _ = zoo_inputs(torch, cfg, 1, ZOO_CHECK_TOKENS, gen)
+        with RouteRecorder() as rc:
+            got = zoo_logits(cfg, params, x, toks).cpu()
+        with RouteRecorder() as rh:
+            want = zoo_logits(cfg, host, x.cpu(),
+                              None if toks is None else toks.cpu())
+    del host
+    flips = routing_flips(torch, rc, rh, cfg.top_k) if cfg.top_k else []
+    for f in flips:
+        print(f"zoo {cfg.name}: token {f['token']} routed apart on the card "
+              f"and the host at layer {f['layer']} (router gap {f['gap']:.3g})",
+              flush=True)
+    upto = min([f["token"] for f in flips], default=got.shape[1])
+    check(upto > 0 and all(f["gap"] <= ZOO_NEAR_TIE for f in flips),
+          f"{cfg.name}: routing differs beyond a near-tie: {flips}")
+    err = rel_err(got[:, :upto], want[:, :upto])
+    check(err <= TOL_CARD_VS_CPU,
+          f"{cfg.name}: card vs CPU {err:.3g} of max|logits|")
+    return {"card_vs_cpu_rel": err, "routing_flips": flips,
+            "tokens_held": upto}
+
+
+def zoo_reduced_checks(torch, seed):
+    """Every registry arch at ``.reduced()``: the forward over 16 tokens
+    (B=2) and 8 decode steps from a 16-slot cache, on the card against
+    the same seeded weights on the CPU, each within 1e-4 of max|logits|.
+    Returns the largest relative difference per family."""
+    from repro_torch import _tree
+    from repro_torch.configs import REGISTRY
+    from repro_torch.models import api
+
+    worst = {}
+    for name, full_cfg in REGISTRY.items():
+        cfg = full_cfg.reduced()
+        host = api.init_params(cfg, torch.Generator().manual_seed(seed),
+                               device="cpu")
+        card = _tree.tree_map(lambda a: a.cuda(), host)
+        x, toks, steps = zoo_inputs(torch, cfg, 2, ZOO_REDUCED_TOKENS,
+                                    torch.Generator().manual_seed(seed + 1))
+        out = {}
+        with torch.inference_mode():
+            for dev, params in (("cuda", card), ("cpu", host)):
+                move = (lambda a: a.to(dev)) if dev == "cuda" else (
+                    lambda a: a)
+                xd = move(x)
+                cache = zoo_cache(cfg, params, 2, ZOO_REDUCED_TOKENS,
+                                  xd if cfg.family == "audio" else None, dev)
+                fwd = zoo_logits(cfg, params, xd,
+                                 None if toks is None else move(toks))
+                dec, _ = zoo_decode(torch, cfg, params, cache,
+                                    [move(s) for s in
+                                     steps[:ZOO_REDUCED_STEPS]])
+                out[dev] = (fwd.cpu(), dec.cpu())
+        errs = [rel_err(c, h) for c, h in zip(out["cuda"], out["cpu"])]
+        check(max(errs) <= TOL_CARD_VS_CPU,
+              f"{name} reduced: card vs CPU forward {errs[0]:.3g}, decode "
+              f"{errs[1]:.3g} of max|logits|")
+        worst[cfg.family] = max(worst.get(cfg.family, 0.0), *errs)
+    return worst
+
+
+def zoo_runs(torch, seed, out_dir: Path):
+    """Phase 7: the four full-width models, then the ten reduced archs,
+    then the launcher's ``--arch`` mode; prints one line per model and
+    writes ``<out>/chip_smoke_zoo.json``."""
+    from repro_torch import _tree
+    from repro_torch.configs import get_arch
+    from repro_torch.models import api
+
+    report = {"full": {}}
+    for name in ZOO_FULL:
+        cfg = get_arch(name)
+        t0 = time.perf_counter()
+        params = api.init_params(cfg, torch.Generator("cuda").manual_seed(seed),
+                                 device="cuda")
+        torch.cuda.synchronize()
+        n_params = sum(a.numel() for a in _tree.leaves(params))
+        entry = {"params": n_params, "init_s": time.perf_counter() - t0}
+        entry.update(zoo_serve(torch, cfg, params, seed))
+        if name in ZOO_DECODE_CHECKED:
+            entry["decode_vs_forward"] = zoo_decode_vs_forward(
+                torch, cfg, params, seed)
+        if name in ZOO_CPU_CHECKED:
+            entry.update(zoo_card_vs_cpu(torch, cfg, params, seed))
+        del params
+        torch.cuda.empty_cache()
+        report["full"][name] = entry
+        print(f"zoo {name}: {n_params} params; {ZOO_STEPS} steps batch="
+              f"{ZOO_BATCH} ctx {ZOO_CTX} -> {entry['ms_per_token']:.2f} "
+              f"ms/token ({entry['tok_per_s']:.1f} tok/s); profiled step "
+              f"{entry['profiled_step_wall_ms']:.2f} ms, "
+              f"{entry['device_launches_per_step']} launches, device busy "
+              f"{entry['device_busy_ms']:.3f} ms "
+              f"({entry['device_busy_share']:.3f}); bound "
+              f"{entry['bound_ms']:.4f} ms ({entry['step_bytes']} bytes); "
+              f"decode vs forward {entry.get('decode_vs_forward')}; card vs "
+              f"CPU {entry.get('card_vs_cpu_rel')}", flush=True)
+        for row in entry["by_kernel"]:
+            print(f"  {row['device_ms']:.4f} ms  x{row['count']}  "
+                  f"{row['name']}", flush=True)
+    report["reduced_card_vs_cpu_by_family"] = zoo_reduced_checks(torch, seed)
+    print(f"zoo reduced card vs CPU (max rel by family): "
+          f"{json.dumps(report['reduced_card_vs_cpu_by_family'])}", flush=True)
+    report["launcher"] = launcher_run(ARCH_LAUNCHES)
+    (out_dir / "chip_smoke_zoo.json").write_text(json.dumps(report, indent=1))
+    return report
+
+
 def boundary_costs(torch, rt, engine, requests, observability=None):
     """Serve ``requests`` (all arriving at once) through one chunked pool
     with ``serve_requests``' loop, ``step_chunk`` instrumented; returns
@@ -1612,24 +1989,17 @@ def boundary_only(torch, args) -> int:
     return 0
 
 
-def launcher_run():
+def launcher_run(runs):
     """The launcher as its users start it, as subprocesses with a time
-    limit: the ``--async`` TCP front-end at hidden 1024, then the
-    synchronous mode, which trains at its default hidden width before it
-    serves a pool; returns their ``[serve]`` lines."""
+    limit, one per ``(args, expected output)`` of ``runs``
+    (``SPARTUS_LAUNCHES``: the ``--async`` TCP front-end at hidden 1024,
+    then the synchronous mode, which trains at its default hidden width
+    before it serves a pool; ``ARCH_LAUNCHES``: the ``--arch`` mode);
+    returns their ``[serve]`` lines."""
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
-    runs = (
-        (["--async", "--pool", "16", "--chunk-frames", "16", "--clients",
-          "8", "--hidden", "1024", "--admin-port", "0"],
-         ["8 concurrent TCP clients served"]),
-        (["--pool", "4", "--requests", "8", "--chunk-frames", "16"],
-         ["[serve] pool(4, chunked x16): 8 sessions", "pack overflow",
-          "modelled Spartus latency"]),
-    )
     lines = []
     for args, expect in runs:
-        cmd = [sys.executable, "-m", "repro_torch.launch.serve",
-               "--spartus", *args]
+        cmd = [sys.executable, "-m", "repro_torch.launch.serve", *args]
         try:
             proc = subprocess.run(cmd, env=env, capture_output=True,
                                   text=True, timeout=LAUNCHER_TIMEOUT_S,
@@ -1737,7 +2107,7 @@ def main() -> int:
     # phase 4: the streaming front-end at full width
     stream_launches, _ = streaming_runs(
         torch, params, am_cfg, np.random.default_rng(args.seed + 1), out_dir)
-    launcher_run()
+    launcher_run(SPARTUS_LAUNCHES)
 
     # phase 5: training at full width, the trained weights served
     random_ts = {e["route"]: e["sparsity"]["temporal_sparsity"]
@@ -1749,6 +2119,12 @@ def main() -> int:
     contract_launches = contract_checks(torch, out_dir)
     delta_rnn_checks(torch, args.seed)
     transformer_example(torch)
+
+    # phase 7: the model zoo, at full width and reduced, and its launcher
+    counters = kernel_counters()
+    zero_counts(counters)
+    zoo_runs(torch, args.seed, out_dir)
+    zoo_launches = read_counts(torch, counters)
 
     kernels = []
     for name, row in rows.items():
@@ -1762,7 +2138,8 @@ def main() -> int:
                 {p: launches[p][name] for p in launches},
                 stream=stream_launches[name],
                 trained=trained_launches[name],
-                contracts=contract_launches[name]),
+                contracts=contract_launches[name],
+                zoo=zoo_launches[name]),
             "max_abs_err": row["max_abs_err"], "ms": row["ms"],
             "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
             "bound_by": row["bound_by"], "library_ms": row["library_ms"],

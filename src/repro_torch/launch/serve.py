@@ -1,14 +1,24 @@
-"""Serving launcher of the port — ``repro/launch/serve.py`` in its two
-``--spartus`` modes, on the card by default.
+"""Serving launcher of the port — ``repro/launch/serve.py``: batched
+decode for any ``--arch`` of the model zoo (the default mode), or the
+paper's Spartus engine in its two ``--spartus`` modes; on the card by
+default.
 
-The synchronous mode trains a small CBTD + DeltaLSTM acoustic model with
-the two-phase recipe (``pretrain_retrain``), then serves it: through a
-session pool (``serve_requests``, ``--pool N``) or the batch-1
-``SpartusEngine`` (``--pool 0``), and reports the modelled Spartus
-latency at the measured sparsity (``hwsim.spartus_model``).  The
+The ``--arch`` mode serves the reduced config of the architecture (as in
+the reference, ``--reduced`` is always on) from seeded random weights:
+``--steps`` greedy decode steps at ``--batch`` with a ``--ctx``-slot
+cache, and prints ms/token.  The ``--spartus`` synchronous mode trains a
+small CBTD + DeltaLSTM acoustic model with the two-phase recipe
+(``pretrain_retrain``), then serves it: through a session pool
+(``serve_requests``, ``--pool N``) or the batch-1 ``SpartusEngine``
+(``--pool 0``), and reports the modelled Spartus latency at the
+measured sparsity (``hwsim.spartus_model``).  The
 ``--async`` mode is the asyncio streaming front-end over a localhost TCP
 socket.
 
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen2-0.5b \
+        --batch 4 --steps 32
+    PYTHONPATH=src python -m repro_torch.launch.serve --device cpu \
+        --batch 2 --steps 4                  # qwen2-0.5b on the host
     PYTHONPATH=src python -m repro_torch.launch.serve --spartus \
         --pool 4 --requests 8 --chunk-frames 16
     PYTHONPATH=src python -m repro_torch.launch.serve --spartus \
@@ -20,9 +30,8 @@ socket.
     PYTHONPATH=src python -m repro_torch.launch.serve --spartus --async \
         --pool 8 --clients 0 --port 8765   # serve forever on :8765
 
-``--arch`` needs the model zoo (ROADMAP.md queue 1 item 14) and
-``--devices`` above 1 slot sharding (item 10): neither is ported, and
-both exit with an error.
+``--devices`` above 1 needs slot sharding (ROADMAP.md queue 1 item 10),
+which is not ported: it exits with an error.
 
 The --async mode exposes the `AsyncSpartusServer` over a localhost
 TCP socket speaking newline-delimited JSON (one object per line):
@@ -351,6 +360,52 @@ async def demo_client(port, cid, feats, *, max_attempts=6, seed=None):
         f"client {cid}: gave up after {max_attempts} attempts ({last})")
 
 
+def serve_arch(args):
+    """Greedy batched decode of ``--arch`` through ``api.serve_step``, as
+    the reference's ``serve_arch``: one warm-up step, then ``--steps``
+    timed steps, each feeding back its argmax (the vlm family feeds the
+    same random embedding every step)."""
+    import time
+
+    import torch
+
+    from repro_torch._device import resolve_device
+    from repro_torch.configs import get_arch
+    from repro_torch.models import api
+
+    device = resolve_device(args.device)
+    cfg = get_arch(args.arch)
+    if args.reduced:
+        cfg = cfg.reduced()
+    params = api.init_params(cfg, torch.Generator(device).manual_seed(0),
+                             device=device)
+    cache = api.init_cache(cfg, args.batch, args.ctx, device=device)
+    if cfg.family == "vlm":
+        inputs = torch.randn((args.batch, 1, cfg.d_model), device=device,
+                             generator=torch.Generator(device).manual_seed(1))
+    else:
+        inputs = torch.zeros((args.batch, 1), dtype=torch.int32,
+                             device=device)
+
+    def sync():
+        if device.type == "cuda":
+            torch.cuda.synchronize(device)
+
+    with torch.inference_mode():
+        logits, cache = api.serve_step(params, cfg, inputs, cache)  # warm-up
+        sync()
+        t0 = time.perf_counter()
+        toks = inputs
+        for _ in range(args.steps):
+            logits, cache = api.serve_step(params, cfg, toks, cache)
+            if cfg.family != "vlm":
+                toks = torch.argmax(logits, dim=-1).to(torch.int32)
+        sync()
+    dt = (time.perf_counter() - t0) / args.steps
+    print(f"[serve] {cfg.name}: {args.steps} steps batch={args.batch} "
+          f"-> {dt*1e3:.2f} ms/token ({args.batch/dt:.1f} tok/s)")
+
+
 def serve_spartus(args):
     """The synchronous mode: train (``pretrain_retrain``: 2 epochs of CBTD
     pretrain at delta_alpha 0.5, then 1 DeltaLSTM retrain epoch, 15 steps
@@ -565,13 +620,16 @@ def serve_spartus_async(args):
 
 def main(argv=None):
     ap = argparse.ArgumentParser()
-    ap.add_argument("--arch", default=None,
-                    help="generic model zoo: not ported (ROADMAP.md queue 1 "
-                         "item 14)")
+    ap.add_argument("--arch", default="qwen2-0.5b")
+    ap.add_argument("--reduced", action="store_true", default=True)
+    ap.add_argument("--batch", type=int, default=4)
+    ap.add_argument("--ctx", type=int, default=128)
+    ap.add_argument("--steps", type=int, default=32)
     ap.add_argument("--spartus", action="store_true")
     ap.add_argument("--device", default="cuda",
                     help="torch device to serve on (default cuda; 'cpu' "
-                         "runs the kernels' plain PyTorch versions)")
+                         "runs on the host, the kernels' plain PyTorch "
+                         "versions)")
     ap.add_argument("--theta", type=float, default=0.2)
     ap.add_argument("--gamma", type=float, default=0.75)
     ap.add_argument("--hidden", type=int, default=64)
@@ -628,11 +686,14 @@ def main(argv=None):
                  f"GPUs is not ported (ROADMAP.md queue 1 item 10)")
     if args.async_mode and not args.spartus:
         ap.error("--async requires --spartus")
-    if not args.spartus:
-        ap.error("--arch serving needs the generic model zoo, which is not "
-                 "ported (ROADMAP.md queue 1 item 14); use --spartus")
+    if args.async_mode:
+        mode = serve_spartus_async
+    elif args.spartus:
+        mode = serve_spartus
+    else:
+        mode = serve_arch
     try:
-        (serve_spartus_async if args.async_mode else serve_spartus)(args)
+        mode(args)
     except RuntimeError as exc:
         if "CUDA" not in str(exc):
             raise

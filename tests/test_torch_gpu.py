@@ -694,3 +694,62 @@ def test_contract_cases_on_card(cuda, width):
         assert report.ok, [str(v) for v in report.violations]
         if case.name in host:
             assert report.op_histogram == host[case.name].op_histogram
+
+
+def _zoo_outputs(cfg, params, device, seed=1):
+    """The forward over 16 tokens (B=2) and 8 decode steps from a zero
+    16-slot cache (audio: the cross-KV of 12 frames), on ``device``."""
+    from repro_torch.models import api, encdec, mamba2, rglru, transformer
+
+    gen = torch.Generator().manual_seed(seed)
+    toks = torch.randint(0, cfg.vocab, (2, 16), generator=gen,
+                         dtype=torch.int32).to(device)
+    x = torch.randn((2, 16, cfg.d_model), generator=gen).to(device)
+    frames = x[:, :12]
+    with torch.inference_mode():
+        if cfg.family in ("dense", "moe"):
+            fwd = transformer.forward(params, cfg, toks)
+        elif cfg.family == "vlm":
+            fwd = transformer.forward(params, cfg, None, inputs_embeds=x)
+        elif cfg.family == "ssm":
+            fwd = mamba2.forward(params, cfg, toks)
+        elif cfg.family == "hybrid":
+            fwd = rglru.forward(params, cfg, toks)
+        else:
+            fwd = encdec.decode_train(params, cfg, toks,
+                                      encdec.encode(params, cfg, frames))
+        if cfg.family == "audio":
+            cache = api.init_cache(cfg, 2, 12, device=device)
+            cache["cross"] = api.prefill(params, cfg, frames)
+        else:
+            cache = api.init_cache(cfg, 2, 16, device=device)
+        steps = []
+        for i in range(8):
+            inp = x[:, i:i + 1] if cfg.family == "vlm" else toks[:, i:i + 1]
+            logits, cache = api.serve_step(params, cfg, inp, cache)
+            steps.append(logits)
+    assert int(cache["pos"]) == 8
+    return fwd.cpu(), torch.cat(steps, 1).cpu()
+
+
+@pytest.mark.parametrize("name", ["qwen2-0.5b", "qwen3-1.7b", "granite-34b",
+                                  "internlm2-20b", "mamba2-130m",
+                                  "pixtral-12b", "granite-moe-1b-a400m",
+                                  "olmoe-1b-7b", "seamless-m4t-medium",
+                                  "recurrentgemma-9b"])
+def test_zoo_arch_on_card_matches_host(cuda, name):
+    """Each registry arch at ``.reduced()``: the forward and 8 decode
+    steps on the card against the same weights on the host, within 1e-4
+    of max|logits| (fp32 sums in another order; ``chip_smoke.py`` phase 7
+    holds the same gate at full width)."""
+    from repro_torch import _tree
+    from repro_torch.configs import get_arch
+    from repro_torch.models import api
+
+    cfg = get_arch(name).reduced()
+    host = api.init_params(cfg, _gen(0), device="cpu")
+    card = _tree.tree_map(lambda a: a.to(cuda), host)
+    for got, want in zip(_zoo_outputs(cfg, card, cuda),
+                         _zoo_outputs(cfg, host, "cpu")):
+        assert torch.isfinite(got).all()
+        assert _max_err(got, want) <= 1e-4 * float(want.abs().max())

@@ -126,3 +126,18 @@ def test_launcher_exits_naming_the_missing_card():
     assert proc.returncode != 0
     assert "CUDA" in proc.stderr and "--device cpu" in proc.stderr
     assert "served" not in proc.stdout
+
+
+def test_model_zoo_entry_points_refuse_the_host_unless_asked(no_cuda):
+    from repro_torch.configs import get_arch
+    from repro_torch.launch import serve as tlaunch
+    from repro_torch.models import api
+
+    cfg = get_arch("qwen2-0.5b").reduced()
+    with pytest.raises(RuntimeError, match="CUDA"):
+        api.init_params(cfg, torch.Generator().manual_seed(0))
+    with pytest.raises(RuntimeError, match="CUDA"):
+        api.init_cache(cfg, 1, 8)
+    assert api.init_cache(cfg, 1, 8, device="cpu")["pos"].device.type == "cpu"
+    with pytest.raises(SystemExit, match="CUDA.*--device cpu"):
+        tlaunch.main(["--arch", "qwen2-0.5b", "--batch", "1", "--steps", "1"])

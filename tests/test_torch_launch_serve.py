@@ -12,6 +12,7 @@ end to end with ``--device cpu --hidden 32``.
 import asyncio
 import json
 import os
+import re
 import subprocess
 import sys
 from pathlib import Path
@@ -266,10 +267,21 @@ def test_launcher_end_to_end_on_cpu():
 
 @pytest.mark.parametrize("args,item", [(["--spartus", "--devices", "2"],
                                         "item 10"),
-                                       ([], "item 14"),
+                                       (["--devices", "4"], "item 10"),
                                        (["--async"], "--async requires")])
 def test_unported_modes_exit_with_their_roadmap_item(capsys, args, item):
     with pytest.raises(SystemExit) as ei:
         tlaunch.main(args)
     assert ei.value.code == 2
     assert item in capsys.readouterr().err
+
+
+@pytest.mark.parametrize("arch", ["qwen2-0.5b", "pixtral-12b"])
+def test_arch_mode_serves_on_cpu(capsys, arch):
+    """The default mode: greedy decode of the reduced arch (the vlm arch
+    feeds embeddings, not its argmax) and the reference's [serve] line."""
+    tlaunch.main(["--arch", arch, "--device", "cpu", "--batch", "2",
+                  "--steps", "4"])
+    line = capsys.readouterr().out.strip().splitlines()[-1]
+    assert re.fullmatch(rf"\[serve\] {arch}: 4 steps batch=2 -> "
+                        rf"[0-9.]+ ms/token \([0-9.]+ tok/s\)", line), line
