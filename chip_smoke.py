@@ -111,7 +111,27 @@ Phases; any failure exits non-zero before a result line is printed:
    ``.reduced()``, card vs CPU (forward over 16 tokens, 8 decode steps,
    1e-4 relative), and the launcher's ``--arch qwen2-0.5b --batch 4
    --steps 32`` as a subprocess.  JSON: ``<out>/chip_smoke_zoo.json``.
-8. Prints ``{"kernels": [...]}`` and then, as the last line,
+8. The model zoo's trainer (``repro_torch.launch.{train,steps}``,
+   ``data/lm.py``; plain PyTorch, none of the five kernels launches):
+   ``qwen2-0.5b``, ``granite-moe-1b-a400m``, ``mamba2-130m`` and
+   ``seamless-m4t-medium`` at full width, fp32, AdamW, B=8, S=256, remat
+   on.  Per arch: step 1's gradients (every leaf nonzero), one
+   ``train_step`` under sync debug mode "error" with its peak memory
+   against params + grads + m + v + the activations remat keeps, one
+   under torch.profiler (device launches, busy ms, idle share), the
+   step's FLOP bound at 67 TFLOP/s, the batch's ms (the LM stream for
+   the token families) and one CBTD prune's ms; then the launcher
+   (``main``) for 18 steps at ``--cbtd-gamma 0.5 --cbtd-every 3``: losses
+   finite and falling, step ms (the median of its per-step windows, the
+   first and the prune steps left out) and tokens/s, and after the last
+   step's prune at alpha = 1 every subcolumn of every layout leaf holding
+   exactly floor(gamma H / M) zeros.  On mamba2-130m a 4-step run
+   checkpoints, its checkpoint restores ``torch.equal``, and the
+   launcher resumed at step 4 draws the uninterrupted run's batch.  Then
+   the ten archs at ``.reduced()``, one ``make_train_step`` card vs CPU
+   (loss and gradients 1e-4, params 1e-4 of max|param|, Adam's sign-free
+   elements counted).  JSON: ``<out>/chip_smoke_zoo_train.json``.
+9. Prints ``{"kernels": [...]}`` and then, as the last line,
    ``{"ok": true, "device": {...}}``.
 
 It imports nothing of JAX and nothing of the JAX package ``repro``.
@@ -120,8 +140,11 @@ from __future__ import annotations
 
 import argparse
 import asyncio
+import contextlib
+import io
 import json
 import os
+import shutil
 import subprocess
 import sys
 import time
@@ -158,6 +181,17 @@ ZOO_CHECK_TOKENS, ZOO_ENC_FRAMES = 8, 12
 ZOO_REDUCED_TOKENS, ZOO_REDUCED_STEPS = 16, 8
 ZOO_DECODE_RTOL, ZOO_DECODE_ATOL = 2e-2, 2e-3   # tests/test_arch_smoke.py
 ZOO_NEAR_TIE = 1e-4
+ZOO_TRAIN = ("qwen2-0.5b", "granite-moe-1b-a400m", "mamba2-130m",
+             "seamless-m4t-medium")
+ZOO_TRAIN_BATCH, ZOO_TRAIN_SEQ, ZOO_TRAIN_STEPS = 8, 256, 18
+# prunes after every 3rd step at alpha_at(step // 3, 0.2): 0, 0.2, ...,
+# 0.8, then 1 at step 18, the only prune that drops weights
+ZOO_TRAIN_GAMMA, ZOO_TRAIN_EVERY = 0.5, 3
+ZOO_RESUME_ARCH, ZOO_RESUME_AT = "mamba2-130m", 4
+# leaves the reference also leaves without gradient at step 1 (the vlm
+# family's inputs_embeds bypass the embedding; tests/torch_zoo_parity.py)
+ZOO_ZERO_GRAD = {"pixtral-12b": ("embed",)}
+TOL_SIGN_FREE_SHARE = 0.02
 SPARTUS_LAUNCHES = (
     (["--spartus", "--async", "--pool", "16", "--chunk-frames", "16",
       "--clients", "8", "--hidden", "1024", "--admin-port", "0"],
@@ -227,6 +261,29 @@ def device_ms(torch, fn, kernel: str, iters: int = 50):
     total_us = sum(self_device_us(evt) for evt in prof.key_averages()
                    if kernel in evt.key)
     return total_us / iters / 1e3 if total_us else None
+
+
+def profile_step(torch, fn):
+    """One call of ``fn`` under torch.profiler: wall ms (ending in a
+    sync), device busy ms and share, device launches, the kernels that
+    take the most device time."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    events = sorted((e for e in prof.key_averages()
+                     if self_device_us(e) > 0), key=lambda e: -self_device_us(e))
+    busy = sum(self_device_us(e) for e in events) / 1e6
+    return {"profiled_step_wall_ms": wall * 1e3, "device_busy_ms": busy * 1e3,
+            "device_busy_share": busy / wall,
+            "device_launches_per_step": sum(e.count for e in events),
+            "by_kernel": [{"name": e.key[:90], "device_ms":
+                           self_device_us(e) / 1e3, "count": e.count}
+                          for e in events[:6]]}
 
 
 def bound_ms(n_bytes: float) -> float:
@@ -1733,8 +1790,6 @@ def zoo_serve(torch, cfg, params, seed):
     launches, busy share, the kernels that take the most device time)
     and one with its routing recorded (the experts a MoE step reads).
     Checks finite logits that change across steps."""
-    from torch.profiler import ProfilerActivity, profile
-
     from repro_torch.models import api
 
     dev = params["embed"].device
@@ -1758,11 +1813,8 @@ def zoo_serve(torch, cfg, params, seed):
             torch.cuda.set_sync_debug_mode(0)
         torch.cuda.synchronize()
         dt = (time.perf_counter() - t0) / ZOO_STEPS
-        with profile(activities=[ProfilerActivity.CUDA]) as prof:
-            t0 = time.perf_counter()
-            api.serve_step(params, cfg, toks, cache)
-            torch.cuda.synchronize()
-            wall = time.perf_counter() - t0
+        prof = profile_step(torch, lambda: api.serve_step(params, cfg, toks,
+                                                          cache))
         with RouteRecorder() as rec:
             api.serve_step(params, cfg, toks, cache)
     outs = torch.stack(outs, 1)
@@ -1770,23 +1822,13 @@ def zoo_serve(torch, cfg, params, seed):
           f"{cfg.name}: non-finite logits in decode")
     spread = float((outs - outs[:, :1]).abs().max())
     check(spread > 0, f"{cfg.name}: logits constant across {ZOO_STEPS} steps")
-    events = sorted((e for e in prof.key_averages()
-                     if self_device_us(e) > 0), key=lambda e: -self_device_us(e))
-    busy = sum(self_device_us(e) for e in events) / 1e6
     hit = ([int(ids.unique().numel()) for _, ids in rec.calls]
            if cfg.family == "moe" else None)
     n_bytes = zoo_step_bytes(cfg, params, ZOO_BATCH, hit)
-    return {"ms_per_token": dt * 1e3, "tok_per_s": ZOO_BATCH / dt,
-            "profiled_step_wall_ms": wall * 1e3,
-            "device_busy_ms": busy * 1e3,
-            "device_busy_share": busy / wall,
-            "device_launches_per_step": sum(e.count for e in events),
+    return {"ms_per_token": dt * 1e3, "tok_per_s": ZOO_BATCH / dt, **prof,
             "step_bytes": n_bytes, "bound_ms": bound_ms(n_bytes),
             "experts_hit_per_layer": hit,
-            "logit_spread_across_steps": spread,
-            "by_kernel": [{"name": e.key[:90], "device_ms":
-                           self_device_us(e) / 1e3, "count": e.count}
-                          for e in events[:6]]}
+            "logit_spread_across_steps": spread}
 
 
 def zoo_decode_vs_forward(torch, cfg, params, seed):
@@ -1926,6 +1968,401 @@ def zoo_runs(torch, seed, out_dir: Path):
           f"{json.dumps(report['reduced_card_vs_cpu_by_family'])}", flush=True)
     report["launcher"] = launcher_run(ARCH_LAUNCHES)
     (out_dir / "chip_smoke_zoo.json").write_text(json.dumps(report, indent=1))
+    return report
+
+
+# -- phase 8: the model zoo's trainer -----------------------------------------
+
+
+def zoo_train_argv(name, steps, *extra):
+    """The launcher's command line for a phase-8 run of ``name``."""
+    return ["--arch", name, "--steps", str(steps), "--batch",
+            str(ZOO_TRAIN_BATCH), "--seq", str(ZOO_TRAIN_SEQ),
+            "--cbtd-gamma", str(ZOO_TRAIN_GAMMA), "--cbtd-every",
+            str(ZOO_TRAIN_EVERY), "--log-every", "1", *extra]
+
+
+def run_launcher(train, argv):
+    """``repro_torch.launch.train.main(argv)`` in this process, its log
+    lines kept (returned beside the run) rather than printed."""
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        run = train.main(argv)
+    return run, buf.getvalue().splitlines()
+
+
+class DrawRecorder:
+    """Keeps the LM batch drawn at data step ``step`` (a host copy) by
+    every ``LMDataset`` while it is entered."""
+
+    def __init__(self, step: int):
+        self.step, self.draws = step, []
+
+    def __enter__(self):
+        from repro_torch.data import lm
+
+        self._orig = orig = lm.LMDataset.__next__
+
+        def recorded(data):
+            at = data.step
+            out = orig(data)
+            if at == self.step:
+                self.draws.append(tuple(t.cpu() for t in out))
+            return out
+
+        lm.LMDataset.__next__ = recorded
+        return self
+
+    def __exit__(self, *exc):
+        from repro_torch.data import lm
+
+        lm.LMDataset.__next__ = self._orig
+
+
+def train_step_flops(cfg, params, batch, seq) -> float:
+    """Operations a train step needs at least: the weights' products
+    (2 per multiply-add; a MoE token through its top_k experts only; the
+    cross-attention's k/v over the encoder frames) and the attention
+    scores and mixes (half the square where causal), forward, backward
+    (twice the forward) and the remat recompute of the layer stacks.
+    The SSD scan, norms and elementwise ops are left out: a lower
+    bound."""
+    from repro_torch import _tree
+
+    t_in = batch * seq
+    t_dec = batch * max(seq // 8, 4) if cfg.family == "audio" else t_in
+    layers = head = 0.0
+    for path, leaf in _tree.leaves_with_path(params):
+        n = leaf.numel()
+        if path == "embed":
+            head += 2 * t_dec * n if cfg.tie_embeddings else 0
+        elif path == "lm_head/w":
+            head += 2 * t_dec * n
+        elif path.endswith("/w") or path.startswith("layers/moe/"):
+            tokens = (t_in if path.startswith("enc_layers") or path.startswith(
+                ("dec_layers/cross_attn/k", "dec_layers/cross_attn/v"))
+                else t_dec)
+            if path.startswith("layers/moe/") and "router" not in path:
+                n = n * cfg.top_k / cfg.n_experts
+            layers += 2 * tokens * n
+    h_dim = cfg.n_heads * cfg.hd
+    if cfg.family in ("dense", "moe", "vlm"):
+        layers += cfg.n_layers * 4 * batch * h_dim * seq * seq / 2
+    elif cfg.family == "audio":
+        s_dec = t_dec // batch
+        layers += 4 * batch * h_dim * (cfg.n_enc_layers * seq * seq
+                                       + cfg.n_dec_layers * (s_dec * s_dec / 2
+                                                             + s_dec * seq))
+    return 3 * (layers + head) + layers
+
+
+def saved_activation_bytes(cfg, batch, seq) -> int:
+    """What remat keeps between the forward and the backward: one fp32
+    ``[B, S, d]`` input per layer of each stack."""
+    if cfg.family == "audio":
+        s_dec = max(seq // 8, 4)
+        return 4 * batch * cfg.d_model * (cfg.n_enc_layers * seq
+                                          + cfg.n_dec_layers * s_dec)
+    return 4 * batch * seq * cfg.d_model * cfg.n_layers
+
+
+def cbtd_balance(params, layout):
+    """Per layout leaf, whether every subcolumn holds exactly floor(gamma
+    * H / M) zeros (Alg. 1, ``effective_m``); returns the leaves that
+    do not and the number checked."""
+    from repro_torch import _tree
+    from repro_torch.core.cbtd import drop_count, effective_m
+
+    bad, n = [], 0
+    for path, w in _tree.leaves_with_path(params):
+        c = next((c for pat, c in layout.items() if pat in path), None)
+        if c is None or w.ndim < 2:
+            continue
+        h, q = w.shape[-2:]
+        m = effective_m(h, c.m)
+        zeros = (w.reshape(*w.shape[:-2], h // m, m, q) == 0).sum(-3)
+        if not bool((zeros == drop_count(h, m, c.gamma)).all()):
+            bad.append(path)
+        n += 1
+    return bad, n
+
+
+def zoo_train_arch(torch, name):
+    """One full-width arch: step 1's gradients (every leaf nonzero but
+    those named in ``ZOO_ZERO_GRAD``), one ``train_step`` under sync
+    debug mode "error" with its peak memory, one profiled, the batch's
+    and one prune's cost; then the launcher's run of ``ZOO_TRAIN_STEPS``
+    steps, its losses falling and its last step's prune at alpha = 1
+    leaving Alg. 1's exact zeros."""
+    from repro_torch import _tree
+    from repro_torch.configs import get_arch
+    from repro_torch.core import cbtd_prune_tree
+    from repro_torch.data.lm import LMConfig, LMDataset
+    from repro_torch.launch import steps as st
+    from repro_torch.launch import train
+    from repro_torch.models import api
+    from repro_torch.training.optimizer import adamw_init
+
+    cfg, dev = get_arch(name), torch.device("cuda")
+    b, s = ZOO_TRAIN_BATCH, ZOO_TRAIN_SEQ
+    args = train.parse_args(zoo_train_argv(name, ZOO_TRAIN_STEPS))
+    params = api.init_params(cfg, torch.Generator(dev).manual_seed(0),
+                             device=dev)
+    opt = adamw_init(params)
+    data = LMDataset(LMConfig(vocab=cfg.vocab, seq_len=s), b, device=dev)
+    batch = train.next_batch(cfg, data, 0, b, s)
+    n_params = sum(a.numel() for a in _tree.leaves(params))
+    entry = {"params": n_params, "batch": b, "seq": s}
+
+    _, grads = st.make_loss_and_grads(cfg, s)(params, batch)
+    paths = [p for p, _ in _tree.leaves_with_path(grads)]
+    norms = torch.stack([g.norm() for g in _tree.leaves(grads)]).tolist()
+    del grads
+    zero = [p for p, n in zip(paths, norms) if not n > 0]
+    check(zero == list(ZOO_ZERO_GRAD.get(name, ())),
+          f"{name}: step 1 leaves a zero gradient on {zero}")
+    entry["grad_leaves_nonzero"] = len(paths) - len(zero)
+
+    step = st.make_train_step(cfg, train.adamw_config(args), s)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    state_in = torch.cuda.memory_allocated()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        params, opt, metrics = step(params, opt, batch)
+    except RuntimeError as exc:
+        raise SmokeFailure(f"{name}: a device sync in train_step: {exc}")
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated()
+    state = 16 * n_params
+    saved = saved_activation_bytes(cfg, b, s)
+    entry.update(peak_bytes=peak, resident_before_step_bytes=state_in,
+                 params_grads_m_v_bytes=state, saved_activation_bytes=saved,
+                 peak_over_state_and_saved=peak / (state + saved))
+    holder = {}
+
+    def one_step():
+        holder["out"] = step(params, opt, batch)
+
+    entry.update(profile_step(torch, one_step))
+    del holder
+    flops = train_step_flops(cfg, params, b, s)
+    n_bytes = 24 * n_params     # params, m, v read once and written once
+    entry.update(step_flops=flops, step_bytes=n_bytes,
+                 flop_bound_ms=flops / FP32_FLOPS_PER_S * 1e3,
+                 byte_bound_ms=bound_ms(n_bytes))
+    entry["bound_ms"] = max(entry["flop_bound_ms"], entry["byte_bound_ms"])
+    entry["bound_by"] = ("operations" if entry["flop_bound_ms"]
+                         >= entry["byte_bound_ms"] else "bytes")
+
+    def timed(fn, n):
+        out = []
+        for _ in range(n):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            out.append((time.perf_counter() - t0) * 1e3)
+        return out
+
+    entry["batch_source"] = ("api.make_train_batch" if cfg.family in
+                             ("vlm", "audio") else "LMDataset")
+    entry["batch_ms"] = float(np.median(timed(
+        lambda: train.next_batch(cfg, data, 1, b, s), 3)))
+    layout = train.prune_layout(cfg, ZOO_TRAIN_GAMMA)
+    entry["prune_ms"] = timed(lambda: cbtd_prune_tree(params, layout, 1.0),
+                              2)[-1]
+    del params, opt, batch, data, step, metrics
+    torch.cuda.empty_cache()
+
+    with DrawRecorder(ZOO_RESUME_AT) as rec:
+        run, log = run_launcher(train, zoo_train_argv(name, ZOO_TRAIN_STEPS))
+    check(log[0].startswith(f"[train] arch={name} mesh={{'data': 1, "
+                            f"'model': 1}} devices=1")
+          and log[-1] == "[train] done", f"{name}: launcher log {log[:2]}")
+    losses = [run.losses[i] for i in range(1, ZOO_TRAIN_STEPS + 1)]
+    check(all(np.isfinite(losses)), f"{name}: non-finite loss {losses}")
+    check(np.mean(losses[-3:]) < np.mean(losses[:3]),
+          f"{name}: loss did not fall (mean of the first 3 steps against "
+          f"the last 3): {losses}")
+    bad, n_leaves = cbtd_balance(run.params, layout)
+    check(n_leaves > 0 and not bad,
+          f"{name}: after the prune at alpha 1, {bad} lack floor(gamma H/M) "
+          f"zeros in some subcolumn")
+    windows = [w * 1e3 for i, w in enumerate(run.window_s_per_step, 1)
+               if i > 1 and i % ZOO_TRAIN_EVERY]
+    step_ms = float(np.median(windows))
+    entry.update(losses=losses, first_loss=losses[0], last_loss=losses[-1],
+                 step_ms=step_ms, tokens_per_s=b * s / step_ms * 1e3,
+                 cbtd_leaves_balanced=n_leaves, launcher_log=log[:1] + log[-2:])
+    draws = rec.draws
+    del run
+    torch.cuda.empty_cache()
+    return entry, draws
+
+
+def zoo_resume_check(torch, name, uninterrupted_draws):
+    """A run of ``ZOO_RESUME_AT`` steps that checkpoints, the checkpoint
+    restored (params, optimizer state and data step ``torch.equal`` to
+    the run's), then the launcher resumed for one step: it picks up at
+    step ``ZOO_RESUME_AT`` and draws the batch the uninterrupted run drew
+    there.  The checkpoints go to ``build/zoo_train_ckpt``, removed
+    after."""
+    from repro_torch import _tree
+    from repro_torch.launch import train
+    from repro_torch.training.checkpoint import CheckpointManager
+
+    ckpt = ROOT / "build" / "zoo_train_ckpt"
+    shutil.rmtree(ckpt, ignore_errors=True)
+    try:
+        t0 = time.perf_counter()
+        first, _ = run_launcher(train, zoo_train_argv(
+            name, ZOO_RESUME_AT, "--ckpt-dir", str(ckpt)))
+        save_s = time.perf_counter() - t0
+        (params, opt), meta, at = CheckpointManager(str(ckpt)).restore_latest(
+            (first.params, first.opt_state))
+        check(at == ZOO_RESUME_AT and meta["data_step"] == first.data.step
+              == ZOO_RESUME_AT, f"{name}: checkpoint at {at}, {meta}")
+        for tree, saved in ((params, first.params), (opt, first.opt_state)):
+            for (path, a), b in zip(_tree.leaves_with_path(tree),
+                                    _tree.leaves(saved)):
+                check(torch.equal(a, b), f"{name}: restored {path} differs")
+        n_bytes = sum(a.numel() * a.element_size()
+                      for a in _tree.leaves((params, opt)))
+        del params, opt, first
+        torch.cuda.empty_cache()
+        with DrawRecorder(ZOO_RESUME_AT) as rec:
+            resumed, log = run_launcher(train, zoo_train_argv(
+                name, ZOO_RESUME_AT + 1, "--ckpt-dir", str(ckpt)))
+        check(f"[train] resumed from step {ZOO_RESUME_AT}" in log
+              and resumed.step0 == ZOO_RESUME_AT
+              and resumed.data.step == ZOO_RESUME_AT + 1,
+              f"{name}: resume log {log}")
+        check(len(rec.draws) == 1 and len(uninterrupted_draws) == 1
+              and all(torch.equal(a, b) for a, b in
+                      zip(rec.draws[0], uninterrupted_draws[0])),
+              f"{name}: the resumed run drew another batch at data step "
+              f"{ZOO_RESUME_AT}")
+        del resumed
+    finally:
+        shutil.rmtree(ckpt, ignore_errors=True)
+    torch.cuda.empty_cache()
+    return {"arch": name, "resumed_at": ZOO_RESUME_AT,
+            "checkpoint_bytes": n_bytes, "first_run_and_save_s": save_s,
+            "restored_equal": True, "same_next_batch": True}
+
+
+def zoo_train_reduced_checks(torch, seed):
+    """Every registry arch at ``.reduced()``: one ``make_train_step`` on
+    the card against the same step on the CPU (the launcher's optimizer,
+    its first batch at B=4, S=32): loss within 1e-4 relative, the
+    clipped gradients (AdamW's ``m / (1 - b1)``) within 1e-4 of the
+    largest, and the updated params within 1e-4 of max|param|; an element
+    whose host gradient lies within twice the card-vs-host gap of zero
+    may take Adam's first step the other way (up to 2 lr apart), and
+    those are counted.  Returns the worst errors by family."""
+    from repro_torch import _tree
+    from repro_torch.configs import REGISTRY
+    from repro_torch.data.lm import LMConfig, LMDataset
+    from repro_torch.launch import steps as st
+    from repro_torch.launch import train
+    from repro_torch.models import api
+    from repro_torch.training.optimizer import adamw_init
+
+    worst = {}
+    for name, full_cfg in REGISTRY.items():
+        cfg = full_cfg.reduced()
+        opt_cfg = train.adamw_config(train.parse_args(
+            zoo_train_argv(name, ZOO_TRAIN_STEPS)))
+        host = api.init_params(cfg, torch.Generator().manual_seed(seed),
+                               device="cpu")
+        card = _tree.tree_map(lambda a: a.cuda(), host)
+        data = LMDataset(LMConfig(vocab=cfg.vocab, seq_len=32), 4,
+                         device="cpu")
+        batch = train.next_batch(cfg, data, 0, 4, 32)
+        step = st.make_train_step(cfg, opt_cfg, 32)
+        pc, oc, mc = step(card, adamw_init(card),
+                          {k: v.cuda() for k, v in batch.items()})
+        ph, oh, mh = step(host, adamw_init(host), batch)
+        loss_err = abs(float(mc["loss"]) - float(mh["loss"])) / abs(
+            float(mh["loss"]))
+        gh = [m / (1 - opt_cfg.b1) for m in _tree.leaves(oh.m)]
+        gc = [m.cpu() / (1 - opt_cfg.b1) for m in _tree.leaves(oc.m)]
+        gmax = max(float(g.abs().max()) for g in gh)
+        grad_err = max(max_err(a, b) for a, b in zip(gc, gh)) / gmax
+        pmax = max(float(p.abs().max()) for p in _tree.leaves(ph))
+        lr = float(mh["lr"])
+        param_err, n_free, n_all = 0.0, 0, 0
+        for (path, a), b, g_c, g_h in zip(_tree.leaves_with_path(pc),
+                                          _tree.leaves(ph), gc, gh):
+            err = (a.cpu().double() - b.double()).abs()
+            free = ((g_h.abs() <= 2 * (g_c - g_h).abs())
+                    & ((g_h != 0) | (g_c != 0)))
+            over = err > 1e-4 * pmax + torch.where(free, 2 * lr, 0.0)
+            check(not bool(over.any()),
+                  f"{name} reduced train step: {path} card vs CPU "
+                  f"{float(err.max()):.3g} > 1e-4 of max|param| {pmax:.3g}")
+            param_err = max(param_err, float(err[~free].max())
+                            if bool((~free).any()) else 0.0)
+            n_free += int(free.sum())
+            n_all += free.numel()
+        check(loss_err <= TOL_CARD_VS_CPU and grad_err <= TOL_CARD_VS_CPU
+              and n_free <= TOL_SIGN_FREE_SHARE * n_all,
+              f"{name} reduced train step: loss {loss_err:.3g}, grads "
+              f"{grad_err:.3g}, {n_free} of {n_all} elements sign-free")
+        fam = worst.setdefault(cfg.family, {"loss": 0.0, "grads": 0.0,
+                                            "params_over_max": 0.0,
+                                            "sign_free_elements": 0})
+        fam["loss"] = max(fam["loss"], loss_err)
+        fam["grads"] = max(fam["grads"], grad_err)
+        fam["params_over_max"] = max(fam["params_over_max"],
+                                     param_err / pmax)
+        fam["sign_free_elements"] += n_free
+    return worst
+
+
+def zoo_train_runs(torch, out_dir: Path):
+    """Phase 8: the four full-width archs through the launcher and its
+    pieces, the resume check, the ten reduced archs card vs CPU; prints
+    one line per arch and writes ``<out>/chip_smoke_zoo_train.json``."""
+    report = {"device": nvidia_smi(), "full": {}}
+    draws = {}
+    for name in ZOO_TRAIN:
+        t0 = time.perf_counter()
+        entry, draws[name] = zoo_train_arch(torch, name)
+        entry["phase_s"] = time.perf_counter() - t0
+        report["full"][name] = entry
+        print(f"zoo train {name}: {entry['params']} params, B={entry['batch']}"
+              f" S={entry['seq']}: step {entry['step_ms']:.1f} ms "
+              f"({entry['tokens_per_s']:.0f} tok/s); profiled step "
+              f"{entry['profiled_step_wall_ms']:.1f} ms, "
+              f"{entry['device_launches_per_step']} launches, device busy "
+              f"{entry['device_busy_ms']:.1f} ms (idle "
+              f"{1 - entry['device_busy_share']:.3f}); bound "
+              f"{entry['bound_ms']:.2f} ms ({entry['bound_by']}: "
+              f"{entry['step_flops']:.4g} FLOP); peak "
+              f"{entry['peak_bytes'] / 2**30:.2f} GiB against "
+              f"p+g+m+v {entry['params_grads_m_v_bytes'] / 2**30:.2f} + "
+              f"saved {entry['saved_activation_bytes'] / 2**30:.2f} GiB; "
+              f"{entry['batch_source']} {entry['batch_ms']:.1f} ms/batch; "
+              f"prune {entry['prune_ms']:.1f} ms; loss "
+              f"{entry['first_loss']:.4f} -> {entry['last_loss']:.4f}",
+              flush=True)
+        for row in entry["by_kernel"]:
+            print(f"  {row['device_ms']:.4f} ms  x{row['count']}  "
+                  f"{row['name']}", flush=True)
+    report["resume"] = zoo_resume_check(torch, ZOO_RESUME_ARCH,
+                                        draws[ZOO_RESUME_ARCH])
+    print(f"zoo train resume: {json.dumps(report['resume'])}", flush=True)
+    report["reduced_card_vs_cpu_by_family"] = zoo_train_reduced_checks(
+        torch, 0)
+    print(f"zoo train reduced card vs CPU: "
+          f"{json.dumps(report['reduced_card_vs_cpu_by_family'])}",
+          flush=True)
+    (out_dir / "chip_smoke_zoo_train.json").write_text(
+        json.dumps(report, indent=1))
     return report
 
 
@@ -2126,6 +2563,14 @@ def main() -> int:
     zoo_runs(torch, args.seed, out_dir)
     zoo_launches = read_counts(torch, counters)
 
+    # phase 8: the model zoo's trainer, at full width and reduced
+    zero_counts(counters)
+    zoo_train_runs(torch, out_dir)
+    zoo_train_launches = read_counts(torch, counters)
+    for name, n in zoo_train_launches.items():
+        check(n == 0, f"{name}: {n} launches on the zoo's training path, "
+                      f"which reaches no kernel")
+
     kernels = []
     for name, row in rows.items():
         # stsp_spmv (B=1) serves only the batch-1 engine; the others are
@@ -2139,7 +2584,8 @@ def main() -> int:
                 stream=stream_launches[name],
                 trained=trained_launches[name],
                 contracts=contract_launches[name],
-                zoo=zoo_launches[name]),
+                zoo=zoo_launches[name],
+                zoo_train=zoo_train_launches[name]),
             "max_abs_err": row["max_abs_err"], "ms": row["ms"],
             "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
             "bound_by": row["bound_by"], "library_ms": row["library_ms"],

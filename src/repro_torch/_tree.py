@@ -57,15 +57,18 @@ def map_with_path(fn: Callable[[str, Any], Any], tree: Any,
                            for key, child in kids])
 
 
-def tree_map(fn: Callable[..., Any], tree: Any, *rest: Any) -> Any:
+def tree_map(fn: Callable[..., Any], tree: Any, *rest: Any,
+             is_leaf: Optional[Callable[[Any], bool]] = None) -> Any:
     """``fn`` over the leaves of ``tree`` and the matching leaves of
     ``rest``, which have the structure of ``tree`` (dicts are matched by
-    key, whatever their order)."""
-    kids = _children(tree)
+    key, whatever their order).  ``is_leaf(node)`` true stops the descent
+    there (a tuple that is one value, such as a partition spec)."""
+    kids = None if is_leaf is not None and is_leaf(tree) else _children(tree)
     if kids is None:
         return fn(tree, *rest)
     if isinstance(tree, dict):
-        return {k: tree_map(fn, v, *(r[k] for r in rest))
+        return {k: tree_map(fn, v, *(r[k] for r in rest), is_leaf=is_leaf)
                 for k, v in tree.items()}
-    return _rebuild(tree, [tree_map(fn, child, *(r[i] for r in rest))
+    return _rebuild(tree, [tree_map(fn, child, *(r[i] for r in rest),
+                                    is_leaf=is_leaf)
                            for i, (_, child) in enumerate(kids)])

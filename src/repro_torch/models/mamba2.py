@@ -4,7 +4,9 @@
 Chunked SSD: within a chunk the recurrence is evaluated as a masked
 matmul (the "dual" attention form); chunk-boundary states are carried by
 a short loop over chunks.  All decays stay in log space and are <= 0, so
-every exp() is bounded by 1.
+every exp() is bounded by 1; the intra-chunk decays are masked before
+the exp, where the reference masks after it (whose gradient is NaN once
+a masked entry overflows).
 
 Decode carries (conv ring state, SSD state [B, H, P, N]) per layer:
 O(1) in sequence length.
@@ -106,7 +108,12 @@ def ssd_chunked(
     diff = l_cum[:, :, :, None, :] - l_cum[:, :, None, :, :]   # [b,nc,i,j,h]
     tri = torch.tril(torch.ones((chunk, chunk), dtype=torch.bool,
                                 device=x.device))
-    decay = torch.where(tri[None, None, :, :, None], torch.exp(diff), 0.0)
+    # the mask goes in before the exp: above the diagonal ``diff`` is
+    # positive and its exp can overflow, and the gradient of a masked inf
+    # is NaN (the reference's ``where(tri, exp(diff), 0)`` trains to NaN
+    # so; the forward is the same either way)
+    decay = torch.exp(torch.where(tri[None, None, :, :, None], diff,
+                                  -math.inf))
     cb = torch.einsum("bcin,bcjn->bcij", cc, bc)
     w = cb[..., None] * decay * dtc[:, :, None, :, :]          # [b,nc,i,j,h]
     y_intra = torch.einsum("bcijh,bcjhp->bcihp", w, xc)

@@ -65,12 +65,6 @@ def global_norm(tree) -> torch.Tensor:
         for l in _tree.leaves(tree)]).sum())
 
 
-def clip_by_global_norm(tree, max_norm: float):
-    norm = global_norm(tree)
-    scale = torch.clamp(max_norm / (norm + 1e-9), max=1.0)
-    return _tree.tree_map(lambda g: g * scale, tree), norm
-
-
 def adamw_init(params) -> AdamState:
     def zeros(p):
         return torch.zeros_like(p, dtype=torch.float32)
@@ -80,12 +74,18 @@ def adamw_init(params) -> AdamState:
                      v=_tree.tree_map(zeros, params))
 
 
-def adamw_update(grads, state: AdamState, params, cfg: AdamWConfig):
-    """Returns (new_params, new_state, metrics)."""
-    if cfg.clip_norm is not None:
-        grads, gnorm = clip_by_global_norm(grads, cfg.clip_norm)
-    else:
-        gnorm = global_norm(grads)
+def adamw_update(grads, state: AdamState, params, cfg: AdamWConfig,
+                 donate: bool = False):
+    """Returns (new_params, new_state, metrics).
+
+    With ``donate`` the update is written into ``params``, ``state.m`` and
+    ``state.v`` (and the clipped gradient into ``grads``), which are
+    returned, as the reference's jitted step donates its params and
+    optimizer state: the old and the new state never coexist.  Every leaf
+    takes the same arithmetic either way, so the two agree bit for bit."""
+    gnorm = global_norm(grads)
+    scale = (torch.clamp(cfg.clip_norm / (gnorm + 1e-9), max=1.0)
+             if cfg.clip_norm is not None else None)
 
     step = state.step + 1
     lr = schedule_fn(cfg)(step)
@@ -94,19 +94,26 @@ def adamw_update(grads, state: AdamState, params, cfg: AdamWConfig):
     b2c = 1.0 - torch.pow(cfg.b2, step_f)
 
     def upd(g, m, v, p):
+        if scale is not None:     # global-norm clipping, one leaf at a time
+            g = g.mul_(scale) if donate else g * scale
         g32 = g.to(torch.float32)
-        m = cfg.b1 * m + (1 - cfg.b1) * g32
-        v = cfg.b2 * v + (1 - cfg.b2) * torch.square(g32)
-        delta = (m / b1c) / (torch.sqrt(v / b2c) + cfg.eps)
+        m_new = cfg.b1 * m + (1 - cfg.b1) * g32
+        v_new = cfg.b2 * v + (1 - cfg.b2) * torch.square(g32)
+        delta = (m_new / b1c) / (torch.sqrt(v_new / b2c) + cfg.eps)
         if cfg.weight_decay:
             delta = delta + cfg.weight_decay * p.to(torch.float32)
-        return (p.to(torch.float32) - lr * delta).to(p.dtype), m, v
+        p_new = (p.to(torch.float32) - lr * delta).to(p.dtype)
+        if not donate:
+            return p_new, m_new, v_new
+        return p.copy_(p_new), m.copy_(m_new), v.copy_(v_new)
 
     # trees are matched by leaf path, whatever their dicts' key order
     g, m, v = (dict(_tree.leaves_with_path(t))
                for t in (grads, state.m, state.v))
-    out = {path: upd(g[path], m[path], v[path], p)
-           for path, p in _tree.leaves_with_path(params)}
+    out = {}
+    with torch.no_grad():
+        for path, p in _tree.leaves_with_path(params):
+            out[path] = upd(g[path], m[path], v[path], p)
     new = [_tree.map_with_path(lambda path, _: out[path][i], params)
            for i in range(3)]
     return new[0], AdamState(step=step, m=new[1], v=new[2]), {

@@ -753,3 +753,84 @@ def test_zoo_arch_on_card_matches_host(cuda, name):
                          _zoo_outputs(cfg, host, "cpu")):
         assert torch.isfinite(got).all()
         assert _max_err(got, want) <= 1e-4 * float(want.abs().max())
+
+
+@pytest.mark.parametrize("name", ["qwen2-0.5b", "qwen3-1.7b", "granite-34b",
+                                  "internlm2-20b", "mamba2-130m",
+                                  "pixtral-12b", "granite-moe-1b-a400m",
+                                  "olmoe-1b-7b", "seamless-m4t-medium",
+                                  "recurrentgemma-9b"])
+def test_zoo_train_step_on_card_matches_host(cuda, name):
+    """One ``make_train_step`` of each registry arch at ``.reduced()`` on
+    the card against the same step on the host (the launcher's optimizer
+    and first batch, B=4, S=32): loss 1e-4 relative, the clipped
+    gradients (``m / (1 - b1)``) 1e-4 of the largest, the updated params
+    1e-4 of max|param|, but for elements whose host gradient lies within
+    twice the card-vs-host gap of 0 (Adam's first step may take them
+    either way, up to 2 lr apart; at most 2% of a tree)."""
+    from repro_torch import _tree
+    from repro_torch.configs import get_arch
+    from repro_torch.data.lm import LMConfig, LMDataset
+    from repro_torch.launch import steps as st
+    from repro_torch.launch import train
+    from repro_torch.models import api
+    from repro_torch.training.optimizer import adamw_init
+
+    cfg = get_arch(name).reduced()
+    args = train.parse_args(["--arch", name, "--steps", "18"])
+    opt_cfg = train.adamw_config(args)
+    host = api.init_params(cfg, _gen(0), device="cpu")
+    card = _tree.tree_map(lambda a: a.to(cuda), host)
+    batch = train.next_batch(cfg, LMDataset(LMConfig(vocab=cfg.vocab,
+                                                     seq_len=32), 4,
+                                            device="cpu"), 0, 4, 32)
+    step = st.make_train_step(cfg, opt_cfg, 32)
+    pc, oc, mc = step(card, adamw_init(card),
+                      {k: v.to(cuda) for k, v in batch.items()})
+    ph, oh, mh = step(host, adamw_init(host), batch)
+    assert abs(float(mc["loss"]) - float(mh["loss"])) <= 1e-4 * abs(
+        float(mh["loss"]))
+    gh = [m / (1 - opt_cfg.b1) for m in _tree.leaves(oh.m)]
+    gc = [m.cpu() / (1 - opt_cfg.b1) for m in _tree.leaves(oc.m)]
+    gmax = max(float(g.abs().max()) for g in gh)
+    pmax = max(float(p.abs().max()) for p in _tree.leaves(ph))
+    lr, n_free, n_all = float(mh["lr"]), 0, 0
+    for a, b, g_c, g_h in zip(_tree.leaves(pc), _tree.leaves(ph), gc, gh):
+        assert a.device.type == "cuda"
+        assert _max_err(g_c, g_h) <= 1e-4 * gmax
+        free = (g_h.abs() <= 2 * (g_c - g_h).abs()) & ((g_h != 0) | (g_c != 0))
+        err = (a.cpu().double() - b.double()).abs()
+        assert bool((err <= 1e-4 * pmax + free.double() * 2 * lr).all())
+        n_free += int(free.sum())
+        n_all += free.numel()
+    assert n_free <= 0.02 * n_all
+
+
+def test_lm_stream_on_card(cuda):
+    """The LM stream drawn on the card: the views, ids under the vocab,
+    the same batch from two datasets and after ``load_state_dict``, and
+    the first tokens of 4096 streams against ``softmax(zipf)`` (Pearson
+    chi-square under its 1 - 1e-4 quantile, cells expecting < 5 pooled)."""
+    from scipy import stats
+
+    from repro_torch.data import lm
+
+    cfg = lm.LMConfig(vocab=64, seq_len=8)
+    data = lm.LMDataset(cfg, 4096, device=cuda)
+    tok, tgt = next(data)
+    assert tok.device.type == "cuda" and tok.dtype == torch.int32
+    assert torch.equal(tok[:, 1:], tgt[:, :-1])
+    assert int(tok.min()) >= 0 and int(tgt.max()) < cfg.vocab
+    again = lm.LMDataset(cfg, 4096, device=cuda)
+    assert torch.equal(next(again)[0], tok)
+    again.load_state_dict({"step": 0})
+    assert torch.equal(next(again)[1], tgt)
+    p = torch.softmax(lm._zipf_logits(cfg, "cpu").double(), 0).numpy()
+    obs = np.bincount(tok[:, 0].cpu().numpy(), minlength=cfg.vocab)
+    exp = 4096 * p
+    small = exp < 5
+    obs = np.append(obs[~small], obs[small].sum())
+    exp = np.append(exp[~small], exp[small].sum())
+    obs, exp = obs[exp > 0], exp[exp > 0]
+    stat = float(((obs - exp) ** 2 / exp).sum())
+    assert stat <= stats.chi2.ppf(1 - 1e-4, len(exp) - 1)
