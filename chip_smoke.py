@@ -3,6 +3,7 @@
 
     python3 chip_smoke.py [--seed N] [--out DIR]
     python3 chip_smoke.py --boundary-only [--src DIR] [--label NAME]
+    python3 chip_smoke.py --sharded-only [--out DIR]
 
 Details (nvcc log, serving report, mirror cost, profile) go to DIR, by
 default ``build/chip_smoke/``.  ``--boundary-only`` prints just the
@@ -10,7 +11,9 @@ chunked pool's boundary costs of the tree whose ``src`` is DIR (the
 retirement fetch's wait, the dispatch's host time, the chunk's device
 span, ``host_overlap_frac``; see ``boundary_only``): to compare two
 commits, unpack the parent with ``git archive`` and run both trees in
-turns in one call.
+turns in one call.  ``--sharded-only`` builds the kernels and runs
+phase 9 alone, on as many cards as are visible (with four, N = 2 and 4
+run on distinct cards).
 
 Phases; any failure exits non-zero before a result line is printed:
 
@@ -86,8 +89,9 @@ Phases; any failure exits non-zero before a result line is printed:
    changing across frames, temporal sparsity in (0, 1), the pack's
    overflow, launches counted as path ``trained``.
 6. Contracts and the rest of the slice: every hot-path contract case
-   (``repro_torch.analysis.cases``: the reference's 14, and the served
-   routes at the served NZI capacity) checked on the card at test scale
+   (``repro_torch.analysis.cases``: the reference's 14, its sharded case
+   on 4 logical shards, and the served routes at the served NZI
+   capacity) checked on the card at test scale
    and at full width (capacity 16, 16-frame chunks), each traced call
    under sync debug mode "error", zero violations ("contracts:" line);
    DeltaGRU and DeltaLinear at H=1024, D=123 over 64 frames on the card
@@ -131,8 +135,25 @@ Phases; any failure exits non-zero before a result line is printed:
    the ten archs at ``.reduced()``, one ``make_train_step`` card vs CPU
    (loss and gradients 1e-4, params 1e-4 of max|param|, Adam's sign-free
    elements counted).  JSON: ``<out>/chip_smoke_zoo_train.json``.
-9. Prints ``{"kernels": [...]}`` and then, as the last line,
-   ``{"ok": true, "device": {...}}``.
+9. Sharded serving at full width (``SessionPool(n_devices=N)``,
+   ``serving/sharding.py``): phase 3's model and 32 requests through
+   ``serve_requests`` at capacity 16 with N = 1, 2 and 4 shards on the
+   "auto" and scatter routes and N = 1 and 4 on scatter+int8, on N
+   distinct cards where that many are visible, else as N logical shards
+   on the one card (the script prints which).  Each run: vs the batch-1
+   engine within 1e-5; vs the unsharded pool (N = 1) ``torch.equal``
+   where the route's chunk is batch-invariant at the shard's batch (its
+   head's fp32 GEMMs, checked alone), else within 1e-5, the gap printed;
+   frames/s, host ms per dispatch (every shard's ``step_chunk``) and,
+   from one wave under torch.profiler, device launches per layer-frame
+   and the idle share.  Then capacity 6 over 4 shards (one shard, the
+   unsharded logits), least-loaded admission in ``shard_loads()``, and
+   ``AsyncSpartusServer(n_devices=4)`` with phase 4's 32 drip-fed clients
+   under sync debug mode "error".  Launches are counted as path
+   ``sharded``, the batch-1 oracle of the checks included.  JSON:
+   ``<out>/chip_smoke_sharded.json``.
+10. Prints the card's name and power limit, ``{"kernels": [...]}`` and
+   then, as the last line, ``{"ok": true, "device": {...}}``.
 
 It imports nothing of JAX and nothing of the JAX package ``repro``.
 """
@@ -171,7 +192,10 @@ LAUNCHER_TIMEOUT_S = 300
 TRAIN_BATCH, TRAIN_FRAMES, TRAIN_STEPS_PER_EPOCH = 16, 64, 5
 PRETRAIN_EPOCHS, RETRAIN_EPOCHS, DELTA_ALPHA = 3, 1, 0.5
 TRAINED_ROUTES = ("auto", "scatter")
-MIRROR_BATCHES = (1, 16, 32)
+# phase 9's per-shard batches (capacity 16 over N = 2 and 4 shards): each
+# kernel is also held against its plain version there in phase 2
+SHARD_BATCHES = (CAPACITY // 2, CAPACITY // 4)
+MIRROR_BATCHES = (1, *sorted(SHARD_BATCHES), CAPACITY, 2 * CAPACITY)
 ZOO_FULL = ("qwen2-0.5b", "granite-moe-1b-a400m", "mamba2-130m",
             "seamless-m4t-medium")
 ZOO_DECODE_CHECKED = ("qwen2-0.5b", "mamba2-130m", "seamless-m4t-medium")
@@ -200,6 +224,11 @@ SPARTUS_LAUNCHES = (
      ["[serve] pool(4, chunked x16): 8 sessions", "pack overflow",
       "modelled Spartus latency"]),
 )
+# phase 9: (route, int8, shard counts); N=1 is the unsharded baseline
+SHARD_ROUTES = (("auto", False, (1, 2, 4)), ("scatter", False, (1, 2, 4)),
+                ("scatter", True, (1, 4)))
+SHARD_FALLBACK_CAPACITY = 6
+SHARD_STREAM_SEED = 9
 ARCH_LAUNCHES = (
     (["--arch", "qwen2-0.5b", "--batch", "4", "--steps", "32"],
      ["[serve] qwen2-0.5b: 32 steps batch=4 -> "]),
@@ -337,9 +366,73 @@ def servable_params(lstm_am, am_cfg, seed: int):
 # -- phase 2: kernels against their plain versions ---------------------------
 
 
+def pointwise_step_case(torch, lp, g, dev, b: int, h_dim: int):
+    """The fused accumulate + HPE stage at batch ``b``, 3 of every 4 slots
+    active: ``torch.equal`` to its plain version, and its case row."""
+    active = torch.arange(b, device=dev) % 4 != 3
+    n_active = int(active.sum())
+    am = active[:, None]
+    dm0 = 2 * torch.randn((b, 4 * h_dim), generator=g, device=dev)
+    y = 0.01 * torch.randn((b, 4 * h_dim), generator=g, device=dev)
+    c0 = torch.randn((b, h_dim), generator=g, device=dev)
+    hid0 = torch.randn((b, h_dim), generator=g, device=dev)
+    got_state = [t.clone() for t in (dm0, c0, hid0)]
+    want_state = [t.clone() for t in (dm0, c0, hid0)]
+    got = lp.lstm_pointwise_step(got_state[0], y, *got_state[1:], active)
+    want = lp.plain_step(want_state[0], y, *want_state[1:], active)
+    check(torch.equal(got, want) and all(
+        torch.equal(u, v) for u, v in zip(got_state, want_state)),
+        f"lstm_pointwise_step B={b}: differs from its plain version")
+    state = [t.clone() for t in (dm0, c0, hid0)]
+    run = lambda: lp.lstm_pointwise_step(state[0], y,  # noqa: E731
+                                         *state[1:], active)
+    glue_state = [t.clone() for t in (dm0, c0, hid0)]
+    plain_state = [t.clone() for t in (dm0, c0, hid0)]
+
+    def glue():
+        # the launches the engine made around the old kernel
+        dm, c, hid = glue_state
+        dm_new = dm + y
+        c.copy_(torch.where(am, want_state[1], c))
+        hid.copy_(torch.where(am, want, hid))
+        dm.copy_(torch.where(am, dm_new, dm))
+
+    library_ms = library_device_ms = None
+    if hasattr(torch.ops.aten, "_thnn_fused_lstm_cell"):
+        # PyTorch's fused LSTM cell (gate order i, f, g, o) adds its two
+        # gate inputs, as the step adds y to dm; the reorder happens
+        # outside the timed call
+        fused = torch.ops.aten._thnn_fused_lstm_cell
+        order = [0, 2, 1, 3]
+        gates_dm, gates_y = (
+            t.view(b, 4, h_dim)[:, order].reshape(b, -1).contiguous()
+            for t in (dm0, y))
+        check(max_err(fused(gates_dm, gates_y, c0)[0], want) <= 1e-5,
+              "library LSTM cell disagrees with the plain version")
+        library_ms = time_ms(torch, lambda: fused(gates_dm, gates_y, c0))
+        library_device_ms = device_ms(
+            torch, lambda: fused(gates_dm, gates_y, c0), "")
+    return {
+        "case": f"step B={b} H={h_dim} active={n_active}",
+        "max_abs_err": max(max_err(u, v) for u, v in
+                           zip([got, *got_state], [want, *want_state])),
+        "ms": time_ms(torch, run),
+        "kernel_device_ms": device_ms(torch, run, "lstm_pointwise_kernel"),
+        "plain_ms": time_ms(torch, lambda: lp.plain_step(
+            plain_state[0], y, *plain_state[1:], active)),
+        "glue_ms": time_ms(torch, glue),
+        "glue_device_ms": device_ms(torch, glue, ""),
+        # dm, y, c read and h written for every row; dm, c, h written
+        # for the active ones; the mask read
+        "bytes": 4 * b * h_dim * 10 + 4 * n_active * h_dim * 6 + b,
+        "library_ms": library_ms, "library_device_ms": library_device_ms,
+    }
+
+
 def kernel_checks(torch, layers, seed: int):
-    """Each kernel vs its plain version at the main path's shapes; the
-    batch SpMV also at layer 1's (Q=1147, K=573)."""
+    """Each kernel vs its plain version at the main path's shapes, and at
+    the sharded path's (phase 9's shard batches); the batch SpMV also at
+    layer 1's (Q=1147, K=573)."""
     from repro_torch.core import cbcsc_decode
     from repro_torch.kernels import delta_encode as de
     from repro_torch.kernels import lstm_pointwise as lp
@@ -350,50 +443,53 @@ def kernel_checks(torch, layers, seed: int):
     g = torch.Generator(device=dev).manual_seed(seed)
     rows = {}
 
-    # delta_encode: the fused IPU stage at B=16 over both layers' widths
-    # (layer 1 D=123, layer 2 D=1024; H=1024), fp32 and Q8.8, 12 of 16
-    # slots active; then the reference's call shape (the same kernel on a
-    # concatenated row, no mask) at both state widths
+    # delta_encode: the fused IPU stage at B=16 and at phase 9's shard
+    # batches, over both layers' widths (layer 1 D=123, layer 2 D=1024;
+    # H=1024), fp32 and Q8.8, 3 of every 4 slots active; then the
+    # reference's call shape (the same kernel on a concatenated row, no
+    # mask) at both state widths
     h_dim = 1024
-    active = torch.arange(CAPACITY, device=dev) % 4 != 3
-    n_active = int(active.sum())
-    am = active[:, None]
     cases = []
-    for d, act_bits in ((1024, None), (123, None), (1024, 16)):
-        f = d + h_dim
-        x = torch.randn((CAPACITY, d), generator=g, device=dev)
-        hid = torch.randn((CAPACITY, h_dim), generator=g, device=dev)
-        s_hat0 = (torch.cat([x, hid], -1)
-                  + 0.3 * torch.randn((CAPACITY, f), generator=g, device=dev))
-        got_state, want_state = s_hat0.clone(), s_hat0.clone()
-        got = de.delta_encode_step(x, hid, got_state, 0.3, active, act_bits)
-        want = de.plain_step(x, hid, want_state, 0.3, active, act_bits)
-        check(torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
-              and torch.equal(got_state, want_state),
-              f"delta_encode_step D={d} act_bits={act_bits}: differs from "
-              f"its plain version")
-        state = s_hat0.clone()
-        run = lambda: de.delta_encode_step(x, hid, state, 0.3,  # noqa: E731
-                                           active, act_bits)
-        # the launches the engine made around the old kernel
-        glue = lambda: (torch.cat([x, hid], dim=-1),  # noqa: E731
-                        state.copy_(torch.where(am, want_state, state)))
-        cases.append({
-            "case": f"step B={CAPACITY} D={d} H={h_dim} act_bits={act_bits} "
-                    f"active={n_active}",
-            "max_abs_err": max(max_err(got[0], want[0]),
-                               max_err(got_state, want_state)),
-            "ms": time_ms(torch, run),
-            "kernel_device_ms": device_ms(torch, run, "delta_encode_kernel"),
-            "plain_ms": time_ms(torch, lambda: de.plain_step(
-                x, hid, want_state, 0.3, active, act_bits)),
-            "glue_ms": time_ms(torch, glue),
-            "glue_device_ms": device_ms(torch, glue, ""),
-            # s and s_hat read, delta and nnz written for every row,
-            # s_hat for the active ones, the mask read
-            "bytes": 4 * CAPACITY * f * 3 + 4 * n_active * f
-                     + 5 * CAPACITY,
-        })
+    for b in (CAPACITY, *SHARD_BATCHES):
+        active = torch.arange(b, device=dev) % 4 != 3
+        n_active = int(active.sum())
+        am = active[:, None]
+        for d, act_bits in ((1024, None), (123, None), (1024, 16)):
+            f = d + h_dim
+            x = torch.randn((b, d), generator=g, device=dev)
+            hid = torch.randn((b, h_dim), generator=g, device=dev)
+            s_hat0 = (torch.cat([x, hid], -1)
+                      + 0.3 * torch.randn((b, f), generator=g, device=dev))
+            got_state, want_state = s_hat0.clone(), s_hat0.clone()
+            got = de.delta_encode_step(x, hid, got_state, 0.3, active,
+                                       act_bits)
+            want = de.plain_step(x, hid, want_state, 0.3, active, act_bits)
+            check(torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+                  and torch.equal(got_state, want_state),
+                  f"delta_encode_step B={b} D={d} act_bits={act_bits}: "
+                  f"differs from its plain version")
+            state = s_hat0.clone()
+            run = lambda: de.delta_encode_step(  # noqa: E731
+                x, hid, state, 0.3, active, act_bits)
+            # the launches the engine made around the old kernel
+            glue = lambda: (torch.cat([x, hid], dim=-1),  # noqa: E731
+                            state.copy_(torch.where(am, want_state, state)))
+            cases.append({
+                "case": f"step B={b} D={d} H={h_dim} act_bits={act_bits} "
+                        f"active={n_active}",
+                "max_abs_err": max(max_err(got[0], want[0]),
+                                   max_err(got_state, want_state)),
+                "ms": time_ms(torch, run),
+                "kernel_device_ms": device_ms(torch, run,
+                                              "delta_encode_kernel"),
+                "plain_ms": time_ms(torch, lambda: de.plain_step(
+                    x, hid, want_state, 0.3, active, act_bits)),
+                "glue_ms": time_ms(torch, glue),
+                "glue_device_ms": device_ms(torch, glue, ""),
+                # s and s_hat read, delta and nnz written for every row,
+                # s_hat for the active ones, the mask read
+                "bytes": 4 * b * f * 3 + 4 * n_active * f + 5 * b,
+            })
     for f, act_bits in ((1147, None), (2048, None)):
         x = torch.randn((CAPACITY, f), generator=g, device=dev)
         xh = x + 0.3 * torch.randn((CAPACITY, f), generator=g, device=dev)
@@ -421,65 +517,13 @@ def kernel_checks(torch, layers, seed: int):
         replaces="src/repro/kernels/delta_encode.py:48", library_ms=None,
         library_device_ms=None, cases=cases)
 
-    # lstm_pointwise: the fused accumulate + HPE stage at B=16, H=1024,
-    # 12 of 16 slots active (y small, so the delta memories stay in range
-    # over the timed calls); then the reference's call shape [16, 4, 1024]
-    dm0 = 2 * torch.randn((CAPACITY, 4 * h_dim), generator=g, device=dev)
-    y = 0.01 * torch.randn((CAPACITY, 4 * h_dim), generator=g, device=dev)
-    c0 = torch.randn((CAPACITY, h_dim), generator=g, device=dev)
-    hid0 = torch.randn((CAPACITY, h_dim), generator=g, device=dev)
-    got_state = [t.clone() for t in (dm0, c0, hid0)]
-    want_state = [t.clone() for t in (dm0, c0, hid0)]
-    got = lp.lstm_pointwise_step(got_state[0], y, *got_state[1:], active)
-    want = lp.plain_step(want_state[0], y, *want_state[1:], active)
-    check(torch.equal(got, want) and all(
-        torch.equal(a, b) for a, b in zip(got_state, want_state)),
-        "lstm_pointwise_step: differs from its plain version")
-    state = [t.clone() for t in (dm0, c0, hid0)]
-    run = lambda: lp.lstm_pointwise_step(state[0], y,  # noqa: E731
-                                         *state[1:], active)
-    glue_state = [t.clone() for t in (dm0, c0, hid0)]
-    plain_state = [t.clone() for t in (dm0, c0, hid0)]
-
-    def glue():
-        # the launches the engine made around the old kernel
-        dm, c, hid = glue_state
-        dm_new = dm + y
-        c.copy_(torch.where(am, want_state[1], c))
-        hid.copy_(torch.where(am, want, hid))
-        dm.copy_(torch.where(am, dm_new, dm))
-
-    library_ms = library_device_ms = None
-    if hasattr(torch.ops.aten, "_thnn_fused_lstm_cell"):
-        # PyTorch's fused LSTM cell (gate order i, f, g, o) adds its two
-        # gate inputs, as the step adds y to dm; the reorder happens
-        # outside the timed call
-        fused = torch.ops.aten._thnn_fused_lstm_cell
-        order = [0, 2, 1, 3]
-        gates_dm, gates_y = (
-            t.view(CAPACITY, 4, h_dim)[:, order].reshape(CAPACITY, -1)
-            .contiguous() for t in (dm0, y))
-        check(max_err(fused(gates_dm, gates_y, c0)[0], want) <= 1e-5,
-              "library LSTM cell disagrees with the plain version")
-        library_ms = time_ms(torch, lambda: fused(gates_dm, gates_y, c0))
-        library_device_ms = device_ms(
-            torch, lambda: fused(gates_dm, gates_y, c0), "")
-    cases = [{
-        "case": f"step B={CAPACITY} H={h_dim} active={n_active}",
-        "max_abs_err": max(max_err(a, b) for a, b in
-                           zip([got, *got_state], [want, *want_state])),
-        "ms": time_ms(torch, run),
-        "kernel_device_ms": device_ms(torch, run, "lstm_pointwise_kernel"),
-        "plain_ms": time_ms(torch, lambda: lp.plain_step(
-            plain_state[0], y, *plain_state[1:], active)),
-        "glue_ms": time_ms(torch, glue),
-        "glue_device_ms": device_ms(torch, glue, ""),
-        # dm, y, c read and h written for every row; dm, c, h written
-        # for the active ones; the mask read
-        "bytes": 4 * CAPACITY * h_dim * 10 + 4 * n_active * h_dim * 6
-                 + CAPACITY,
-        "library_ms": library_ms, "library_device_ms": library_device_ms,
-    }]
+    # lstm_pointwise: the fused accumulate + HPE stage at B=16 and at
+    # phase 9's shard batches, H=1024, 3 of every 4 slots active (y
+    # small, so the delta memories stay in range over the timed calls);
+    # then the reference's call shape [16, 4, 1024]
+    cases = []
+    for b in (CAPACITY, *SHARD_BATCHES):
+        cases.append(pointwise_step_case(torch, lp, g, dev, b, h_dim))
     dm = torch.randn((CAPACITY, 4, h_dim), generator=g, device=dev)
     c = torch.randn((CAPACITY, h_dim), generator=g, device=dev)
     got, want = lp.lstm_pointwise(dm, c), lp.plain(dm, c)
@@ -500,7 +544,8 @@ def kernel_checks(torch, layers, seed: int):
     # the CBCSC SpMV on the packed full-width layers, NZI lists built by
     # the serving CTRL stage from deltas with ~30% of the columns fired:
     # layer 2 (Q=2048, K=1024) at B=16 and B=1, layer 1 (Q=1147, K=573)
-    # at B=16 as the batch kernel's extra cases
+    # at B=16 and both layers at phase 9's shard batches as the batch
+    # kernel's extra cases
     def spmv_cases(layer, name, b):
         enc, s = layer.enc, layer.enc.s
         q, m, blen = enc.val.shape
@@ -565,6 +610,10 @@ def kernel_checks(torch, layers, seed: int):
         cases = spmv_cases(layers[1], name, b)
         if b > 1:
             cases += spmv_cases(layers[0], name, b)
+            # phase 9's shard batches, both layers
+            for shard_b in SHARD_BATCHES:
+                for layer in (layers[1], layers[0]):
+                    cases += spmv_cases(layer, name, shard_b)
         check(kern.launches > 0, f"{name}: kernel was not launched")
         rows[name] = dict(
             cases[0], source="src/repro_torch/kernels/csrc/spartus_kernels.cu",
@@ -593,8 +642,8 @@ def ulp_report(torch, got, want):
 
 def mirror_checks(torch, params, am_cfg, seed: int):
     """The dense-mirror kernel on both layers' packed mirrors of the 2x1024
-    model (fp32 and int8 packs), ~30% of the deltas fired, at B = 1, 16
-    and 32: ``torch.equal`` to its plain float64 product on the card
+    model (fp32 and int8 packs), ~30% of the deltas fired, at
+    ``MIRROR_BATCHES`` (B = 1, phase 9's shard batches 4 and 8, 16, 32): ``torch.equal`` to its plain float64 product on the card
     (any element that differs fails the check, printed with its ulps),
     and each row equal to the same row computed alone.  The main row is
     layer 2, B=16, fp32: the "auto" route's product."""
@@ -670,8 +719,10 @@ def mirror_checks(torch, params, am_cfg, seed: int):
                     case["library_ms"] = time_ms(torch, library)
                     case["library_device_ms"] = device_ms(torch, library, "")
                 cases.append(case)
+    main = next(c for c in cases
+                if c["case"].startswith(f"layer 2 fp32 B={CAPACITY} "))
     return {"dense_mirror": dict(
-        cases[1], route="cuda",
+        main, route="cuda",
         source="src/repro_torch/kernels/csrc/spartus_kernels.cu",
         replaces="src/repro/kernels/ops.py:341",
         note="replaces the XLA dot in delta_spmv_dense_topk_batch: a "
@@ -915,6 +966,67 @@ GLUE_EVENT_NAMES = ("elementwise", "CatArray", "Memcpy", "Memset")
 PROFILE_ROUTES = (("auto", False), ("scatter", False), ("scatter", True))
 
 
+def profile_wave_requests(rt, requests):
+    """One wave: the first CAPACITY requests cut to 64 frames."""
+    return [rt.StreamRequest(r.req_id, 0, r.feats[:CPU_CHECK_FRAMES])
+            for r in requests[:CAPACITY]]
+
+
+def profile_wave(torch, rt, engine, wave, n_devices=None):
+    """``wave`` through ``serve_requests`` once untimed, then once under
+    torch.profiler: device launches per layer-frame of the pool (a
+    frame-step of every slot; a sharded pool's shards each step it), all
+    of them and PyTorch's elementwise/copy/cat glue apart, device busy
+    time and idle share of the wall.  Returns (entry, profile)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    rt.serve_requests(engine, wave, CAPACITY, chunk_frames=CHUNK_FRAMES,
+                      n_devices=n_devices)
+    steps = [0]
+    core = rt.BatchedSpartusEngine._step_core
+
+    def counted(self, *args, **kwargs):
+        steps[0] += 1
+        return core(self, *args, **kwargs)
+
+    rt.BatchedSpartusEngine._step_core = counted
+    try:
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            rt.serve_requests(engine, wave, CAPACITY,
+                              chunk_frames=CHUNK_FRAMES, n_devices=n_devices)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+    finally:
+        rt.BatchedSpartusEngine._step_core = core
+    from repro_torch.serving import sharding as shardlib
+
+    n_shards = shardlib.n_pool_shards(
+        shardlib.make_pool_mesh(n_devices, engine.device), CAPACITY)
+    # device events only: the CUDA runtime's host-side calls
+    # (cudaLaunchKernel, cudaMemcpyAsync, ...) appear too, with no
+    # device time of their own
+    kernels = sorted(((e.key, self_device_us(e) / 1e6, e.count)
+                      for e in prof.key_averages()
+                      if self_device_us(e) > 0), key=lambda r: -r[1])
+    busy = sum(t for _, t, _ in kernels)
+    launches = sum(n for _, _, n in kernels)
+    glue = sum(n for k, _, n in kernels
+               if any(name in k for name in GLUE_EVENT_NAMES))
+    frame_steps = steps[0] // n_shards
+    layer_frames = frame_steps * len(engine.layers)
+    return {"frames": CAPACITY * CPU_CHECK_FRAMES, "n_shards": n_shards,
+            "frame_steps": frame_steps, "layer_frames": layer_frames,
+            "device_launches": launches, "glue_launches": glue,
+            "launches_per_layer_frame": launches / layer_frames,
+            "glue_launches_per_layer_frame": glue / layer_frames,
+            "wall_s": wall, "device_busy_s": busy,
+            "device_idle_share": 1.0 - busy / wall if wall else None,
+            "by_kernel": [{"name": k[:90], "device_s": t, "count": n}
+                          for k, t, n in kernels[:15]]}, prof
+
+
 def profile_serving(torch, params, am_cfg, requests, out_dir: Path):
     """One wave (16 requests cut to 64 frames) of each route, under
     torch.profiler: device launches per layer-frame (all of them, and
@@ -922,55 +1034,19 @@ def profile_serving(torch, params, am_cfg, requests, out_dir: Path):
     share of the wall time, and, on the scatter route, the SpMV's device
     time split by layer (each frame-step launches layer 1's SpMV, then
     layer 2's).  Returns the report, one entry per route."""
-    from torch.profiler import ProfilerActivity, profile
-
     from repro_torch import serving as rt
     from repro_torch.core import QuantConfig
 
-    wave = [rt.StreamRequest(r.req_id, 0, r.feats[:CPU_CHECK_FRAMES])
-            for r in requests[:CAPACITY]]
+    wave = profile_wave_requests(rt, requests)
     report = []
     for route, quant in PROFILE_ROUTES:
         engine = rt.BatchedSpartusEngine(params, am_cfg, rt.EngineConfig(
             theta=am_cfg.theta, gamma=GAMMA, m=M, spmv_path=route,
             quant=QuantConfig() if quant else None))
-        rt.serve_requests(engine, wave, CAPACITY, chunk_frames=CHUNK_FRAMES)
-        steps = [0]
-        core = engine._step_core
-
-        def counted(*args, **kwargs):
-            steps[0] += 1
-            return core(*args, **kwargs)
-
-        engine._step_core = counted
-        torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CUDA]) as prof:
-            t0 = time.perf_counter()
-            rt.serve_requests(engine, wave, CAPACITY,
-                              chunk_frames=CHUNK_FRAMES)
-            torch.cuda.synchronize()
-            wall = time.perf_counter() - t0
-        # device events only: the CUDA runtime's host-side calls
-        # (cudaLaunchKernel, cudaMemcpyAsync, ...) appear too, with no
-        # device time of their own
-        kernels = sorted(((e.key, self_device_us(e) / 1e6, e.count)
-                          for e in prof.key_averages()
-                          if self_device_us(e) > 0), key=lambda r: -r[1])
-        busy = sum(t for _, t, _ in kernels)
-        launches = sum(n for _, _, n in kernels)
-        glue = sum(n for k, _, n in kernels
-                   if any(name in k for name in GLUE_EVENT_NAMES))
-        layer_frames = steps[0] * len(engine.layers)
-        entry = {"route": route + ("+int8" if quant else ""),
-                 "frames": CAPACITY * CPU_CHECK_FRAMES,
-                 "frame_steps": steps[0], "layer_frames": layer_frames,
-                 "device_launches": launches, "glue_launches": glue,
-                 "launches_per_layer_frame": launches / layer_frames,
-                 "glue_launches_per_layer_frame": glue / layer_frames,
-                 "wall_s": wall, "device_busy_s": busy,
-                 "device_idle_share": 1.0 - busy / wall if wall else None,
-                 "by_kernel": [{"name": k[:90], "device_s": t, "count": n}
-                               for k, t, n in kernels[:15]]}
+        entry, prof = profile_wave(torch, rt, engine, wave)
+        entry = dict(route=route + ("+int8" if quant else ""), **entry)
+        wall, busy = entry["wall_s"], entry["device_busy_s"]
+        layer_frames = entry["layer_frames"]
         if route == "scatter" and not quant:
             spmv = sorted((e for e in prof.events()
                            if "stsp_spmv_kernel" in e.name),
@@ -1100,31 +1176,49 @@ def instrument(torch, pool, engine, call: str = "tick"):
             timing["events"].append(cur["events"])
         return out
 
-    step_chunk = engine.step_chunk
+    # a sharded pool calls every shard's engine replica once per dispatch:
+    # the dispatch's host time sums them, and its device span is the
+    # longest of its cards' spans (first shard's start to last shard's end
+    # on each card)
+    engines = list({id(e): e for e in (
+        [sh.engine for sh in pool._shards] if hasattr(pool, "_shards")
+        else [engine])}.values())
 
-    def timed_chunk(*args, **kwargs):
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        start.record()
-        t0 = time.perf_counter()
-        out = step_chunk(*args, **kwargs)
-        cur["dispatch_ms"] = (time.perf_counter() - t0) * 1e3
-        end.record()
-        cur["events"] = (start, end)
-        return out
+    def timed_chunk_of(eng):
+        step_chunk = eng.step_chunk
+
+        def timed_chunk(*args, **kwargs):
+            stream = torch.cuda.current_stream(eng.device)
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record(stream)
+            t0 = time.perf_counter()
+            out = step_chunk(*args, **kwargs)
+            cur["dispatch_ms"] = (cur.get("dispatch_ms", 0.0)
+                                  + (time.perf_counter() - t0) * 1e3)
+            end.record(stream)
+            spans = cur.setdefault("events", {})
+            first = spans.get(stream.device, (start, end))[0]
+            spans[stream.device] = (first, end)
+            return out
+
+        return timed_chunk
 
     setattr(pool, call, timed_call)
     pool._resolve = timed("resolve_ms", pool._resolve)
     if hasattr(pool, "_fold_boundary"):
         pool._fold_boundary = timed("fold_ms", pool._fold_boundary)
-    engine.step_chunk = timed_chunk
+    for eng in engines:
+        eng.step_chunk = timed_chunk_of(eng)
 
     def read():
-        del engine.step_chunk
-        torch.cuda.synchronize()
+        for eng in engines:
+            del eng.step_chunk
+            torch.cuda.synchronize(eng.device)
         out = {k: v for k, v in timing.items() if k != "events"}
-        out["chunk_device_span_ms"] = [a.elapsed_time(b)
-                                       for a, b in timing["events"]]
+        out["chunk_device_span_ms"] = [
+            max(a.elapsed_time(b) for a, b in spans.values())
+            for spans in timing["events"]]
         return out
 
     return read
@@ -1158,7 +1252,7 @@ async def admin_scrape(start_admin_server, srv, obs):
 
 
 def serve_streams(torch, engine, clients, *, faults=None, scrape=False,
-                  timed=False):
+                  timed=False, n_devices=None):
     """One run of every client through an AsyncSpartusServer.  A timed
     run is also the sync check: it runs with ``torch.cuda``'s sync debug
     mode set to "error", so any blocking copy or synchronize on the
@@ -1172,7 +1266,8 @@ def serve_streams(torch, engine, clients, *, faults=None, scrape=False,
     srv = AsyncSpartusServer(
         engine, CAPACITY, chunk_frames=CHUNK_FRAMES, max_frames=MAX_FRAMES,
         partial_queue_len=PARTIAL_QUEUE_LEN, offload_ticks=True,
-        observability=obs, watchdog=faults is not None, faults=faults)
+        n_devices=n_devices, observability=obs,
+        watchdog=faults is not None, faults=faults)
     read = instrument(torch, srv.pool, engine) if timed else None
 
     async def run():
@@ -1531,7 +1626,8 @@ def training_runs(torch, requests, random_ts, seed: int, out_dir: Path):
 
 def contract_checks(torch, out_dir: Path):
     """Every contract case (``repro_torch.analysis.cases``: the reference's
-    14 and the served routes at the served NZI capacity) on the card at
+    14, its sharded case and the served routes at the served NZI
+    capacity) on the card at
     test scale and at the 2x1024 model's full width (capacity 16, 16-frame
     chunks), each traced call under sync debug mode "error"; fails on any
     violation.  Returns the kernels' launches over the checks."""
@@ -2366,6 +2462,251 @@ def zoo_train_runs(torch, out_dir: Path):
     return report
 
 
+# -- phase 9: sharded serving at full width -----------------------------------
+
+
+def shard_placement(torch, n: int):
+    """(context, what): N distinct cards when that many are visible, else
+    N logical shards on cuda:0 (``launch.mesh.emulated_devices``)."""
+    from repro_torch.launch.mesh import emulated_devices
+
+    if torch.cuda.device_count() >= n:
+        return contextlib.nullcontext(), f"{n} distinct card(s)"
+    return emulated_devices(n), f"{n} logical shard(s) on cuda:0"
+
+
+def head_batch_invariant(torch, engine, batch: int) -> bool:
+    """Whether the engine's head gives each row the same bits at
+    ``batch`` rows as at CAPACITY.  The head's fp32 GEMMs are the chunk's
+    only ops whose sums the library may order by batch (cuBLAS picks its
+    kernel by shape): every kernel of the route keeps a slot's sums in an
+    order of its own, and the sorts and top-k are exact.  So a route's
+    sharded chunk is batch-invariant where its head is."""
+    hidden = engine.layers[-1].hidden_dim
+    gen = torch.Generator(device=engine.device).manual_seed(1)
+    h = torch.randn((CAPACITY, hidden), generator=gen, device=engine.device)
+    return torch.equal(engine.head(h)[:batch], engine.head(h[:batch]))
+
+
+def timed_serve(torch, rt, engine, requests, capacity, n_devices):
+    """``serve_requests`` after one untimed wave, with the host time of
+    every shard's ``step_chunk`` summed per pool dispatch.  Returns the
+    results, the stats, the wall and the host ms per dispatch."""
+    warm = [rt.StreamRequest(r.req_id, 0, r.feats[:2 * CHUNK_FRAMES])
+            for r in requests[:capacity]]
+    rt.serve_requests(engine, warm, capacity, chunk_frames=CHUNK_FRAMES,
+                      n_devices=n_devices)
+    host = [0.0]
+    chunk = rt.BatchedSpartusEngine.step_chunk
+
+    def timed_chunk(self, *args, **kwargs):
+        t0 = time.perf_counter()
+        out = chunk(self, *args, **kwargs)
+        host[0] += time.perf_counter() - t0
+        return out
+
+    rt.BatchedSpartusEngine.step_chunk = timed_chunk
+    try:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        results, stats = rt.serve_requests(
+            engine, requests, capacity, chunk_frames=CHUNK_FRAMES,
+            n_devices=n_devices)
+        wall = time.perf_counter() - t0
+    finally:
+        rt.BatchedSpartusEngine.step_chunk = chunk
+    return results, stats, wall, host[0] * 1e3 / stats.n_dispatches
+
+
+def sharded_runs(torch, params, am_cfg, requests, out_dir: Path):
+    """Phase 9: phase 3's model and requests through ``serve_requests``
+    with N = 1, 2 and 4 shards on the "auto" and scatter routes and N = 1
+    and 4 on scatter+int8, on distinct cards where that many are visible,
+    else as logical shards on the one card; capacity 6 over 4 shards (the
+    one-shard fallback); least-loaded admission; the async server over 4
+    shards with phase 4's drip-fed clients under sync debug mode "error".
+    Returns the kernels' launches on the sharded path and the report.
+    Those are counted only over the runs of pools of more than one shard
+    (the timed and profiled N > 1 runs, the 4-shard async server): the
+    batch-1 oracle, the N=1 baselines, the one-shard fallback and the
+    unsharded runs the checks compare with are outside the count."""
+    from repro_torch import serving as rt
+    from repro_torch.core import QuantConfig
+
+    counters = kernel_counters()
+    launches = dict.fromkeys(counters, 0)
+
+    @contextlib.contextmanager
+    def counted(on: bool = True):
+        """Adds the launches made inside the block to ``launches``."""
+        if not on:
+            yield
+            return
+        zero_counts(counters)
+        yield
+        for name, n in read_counts(torch, counters).items():
+            launches[name] += n
+
+    wave = profile_wave_requests(rt, requests)
+    report = {"placement": {}, "runs": [], "profiles": []}
+    for route, quant, counts in SHARD_ROUTES:
+        label = route + ("+int8" if quant else "")
+        ecfg = rt.EngineConfig(theta=am_cfg.theta, gamma=GAMMA, m=M,
+                               spmv_path=route,
+                               quant=QuantConfig() if quant else None)
+        engine = rt.BatchedSpartusEngine(params, am_cfg, ecfg)
+        batch1 = rt.SpartusEngine(params, am_cfg, ecfg)
+        b1 = [batch1.run_utterance(requests[i].feats).cpu().numpy()
+              for i in range(2)]
+        base = None
+        for n in counts:
+            ctx, where = shard_placement(torch, n)
+            report["placement"][n] = where
+            with ctx, counted(n > 1):
+                results, stats, wall, host_ms = timed_serve(
+                    torch, rt, engine, requests, CAPACITY, n)
+                prof, _ = profile_wave(torch, rt, engine, wave, n)
+            n_shards = prof["n_shards"]
+            check(n_shards == n, f"sharded {label} N={n}: {n_shards} shards")
+            check(len(results) == N_REQUESTS and all(
+                r.logits.shape == (q.n_frames, am_cfg.n_classes)
+                and np.isfinite(r.logits).all()
+                for r, q in zip(results, requests)),
+                f"sharded {label} N={n}: results malformed")
+            err_b1 = max(float(np.abs(results[i].logits - b1[i]).max())
+                         for i in range(2))
+            check(err_b1 <= TOL_POOL_VS_BATCH1,
+                  f"sharded {label} N={n}: vs batch-1 max err {err_b1}")
+            if base is None:
+                base = results
+            invariant = head_batch_invariant(torch, engine, CAPACITY // n)
+            gap = max(float(np.abs(a.logits - b.logits).max())
+                      for a, b in zip(results, base))
+            equal = all(np.array_equal(a.logits, b.logits)
+                        for a, b in zip(results, base))
+            check(equal if invariant else gap <= TOL_POOL_VS_BATCH1,
+                  f"sharded {label} N={n}: vs the unsharded pool max gap "
+                  f"{gap} (head batch-invariant: {invariant})")
+            entry = {
+                "route": label, "n_devices": n, "placement": where,
+                "frames": stats.total_frames, "wall_s": wall,
+                "frames_per_s": stats.total_frames / wall,
+                "n_dispatches": stats.n_dispatches,
+                "host_ms_per_dispatch": host_ms,
+                "host_overlap_frac": stats.host_overlap_frac,
+                "head_batch_invariant": invariant,
+                "equal_to_unsharded": equal, "max_gap_to_unsharded": gap,
+                "vs_batch1_max_err": err_b1,
+                "launches_per_layer_frame": prof["launches_per_layer_frame"],
+                "device_busy_s": prof["device_busy_s"],
+                "device_idle_share": prof["device_idle_share"],
+                "profiled_wall_s": prof["wall_s"],
+            }
+            report["runs"].append(entry)
+            report["profiles"].append(dict(prof, route=label, n_devices=n))
+            print(f"sharded {label} N={n} ({where}): frames/s "
+                  f"{entry['frames_per_s']:.1f} host_ms/dispatch "
+                  f"{host_ms:.3f} launches/layer-frame "
+                  f"{entry['launches_per_layer_frame']:.2f} idle_share "
+                  f"{entry['device_idle_share']:.4f} equal_to_unsharded "
+                  f"{equal} (head batch-invariant {invariant}, max gap "
+                  f"{gap:.3g}) vs_batch1 {err_b1:.3g}", flush=True)
+
+    # the one-shard fallback and least-loaded admission, on "auto"
+    engine = rt.BatchedSpartusEngine(params, am_cfg, rt.EngineConfig(
+        theta=am_cfg.theta, gamma=GAMMA, m=M))
+    few = requests[:2 * SHARD_FALLBACK_CAPACITY]
+    plain, _ = rt.serve_requests(engine, few, SHARD_FALLBACK_CAPACITY,
+                                 chunk_frames=CHUNK_FRAMES)
+    ctx, where = shard_placement(torch, 4)
+    with ctx:
+        pool = rt.SessionPool(engine, SHARD_FALLBACK_CAPACITY,
+                              chunk_frames=CHUNK_FRAMES, n_devices=4)
+        fallback, _ = rt.serve_requests(engine, few, SHARD_FALLBACK_CAPACITY,
+                                        chunk_frames=CHUNK_FRAMES,
+                                        n_devices=4)
+        placed = rt.SessionPool(engine, CAPACITY, max_frames=MAX_FRAMES,
+                                chunk_frames=CHUNK_FRAMES, n_devices=4)
+    check(pool.n_shards == 1 and all(
+        np.array_equal(a.logits, b.logits) for a, b in zip(fallback, plain)),
+        f"sharded fallback: {pool.n_shards} shards, or logits differ")
+    loads = []
+    for r in requests[:6]:
+        placed.admit(r, 0)
+        loads.append(placed.shard_loads())
+    check(loads[3] == [1, 1, 1, 1] and loads[5] == [2, 2, 1, 1],
+          f"sharded admission: shard loads {loads}")
+    placed.drain(0)
+    report["fallback"] = {"capacity": SHARD_FALLBACK_CAPACITY,
+                          "n_devices": 4, "n_shards": pool.n_shards,
+                          "equal_to_unsharded": True}
+    report["admission_shard_loads"] = loads
+    print(f"sharded fallback: capacity {SHARD_FALLBACK_CAPACITY} over 4 "
+          f"devices -> {pool.n_shards} shard, logits equal to the "
+          f"unsharded pool; admission shard loads {loads}", flush=True)
+
+    # the async server over 4 shards, phase 4's clients
+    clients = make_stream_clients(am_cfg, np.random.default_rng(
+        SHARD_STREAM_SEED))
+    ctx, where = shard_placement(torch, 4)
+    with ctx, counted():
+        serve_streams(torch, engine, [dict(
+            c, feats=c["feats"][:2 * CHUNK_FRAMES], start=0.0,
+            blocks=[(0, 2 * CHUNK_FRAMES)], gaps=[0.0], cancel_at=None,
+            slow=False) for c in clients[:CAPACITY]], n_devices=4)
+        run = serve_streams(torch, engine, clients, timed=True, n_devices=4)
+    check(run["srv"].pool.n_shards == 4 and run["srv"].pool.n_active == 0,
+          "sharded stream: not 4 shards, or the pool did not end empty")
+    done = {}
+    for c, out in zip(clients, run["outs"]):
+        if c["cancel_at"] is not None:
+            check(out["cancelled"], f"sharded stream: client {c['id']} was "
+                                    f"not cancelled")
+            continue
+        res = out["result"]
+        check(np.array_equal(np.concatenate([p.rows for p in out["parts"]]),
+                             res.logits),
+              f"sharded stream: client {c['id']} partials differ from its "
+              f"result")
+        done[c["id"]] = res
+    ids = sorted(done)
+    sync, _ = rt.serve_requests(engine, [
+        rt.StreamRequest(i, 0, clients[i]["feats"]) for i in ids],
+        CAPACITY, chunk_frames=CHUNK_FRAMES)
+    err = max(float(np.abs(done[i].logits - r.logits).max())
+              for i, r in zip(ids, sync))
+    check(len(ids) == N_STREAM_CLIENTS - len(CANCELLED_CLIENTS)
+          and err <= TOL_POOL_VS_BATCH1,
+          f"sharded stream: {len(ids)} results, vs serve_requests {err}")
+    stats = run["srv"].stats()
+    timing = run["timing"]
+    frames = int(sum(done[i].logits.shape[0] for i in ids))
+    report["stream"] = {
+        "placement": where, "clients": N_STREAM_CLIENTS,
+        "completed": len(ids), "frames": frames, "wall_s": run["wall"],
+        "frames_per_s": frames / run["wall"],
+        "p50_latency_s": stats.p50_latency_s,
+        "p99_latency_s": stats.p99_latency_s,
+        "n_dispatches": stats.n_dispatches,
+        "sync_check": "no blocking sync under sync debug mode 'error'",
+        "tick_wall_ms": summary(timing["wall_ms"]),
+        "dispatch_host_ms": summary(timing["dispatch_ms"]),
+        "chunk_device_span_ms": summary(timing["chunk_device_span_ms"]),
+        "vs_serve_requests_max_err": err}
+    print(f"sharded stream N=4 ({where}): {json.dumps(report['stream'])}",
+          flush=True)
+    for name, n in launches.items():
+        # the batch-1 SpMV serves only the batch-1 engine, never a pool
+        if name == "stsp_spmv":
+            check(n == 0, f"{name}: {n} launches on the sharded path")
+        else:
+            check(n > 0, f"{name}: no launch on the sharded path")
+    report["launches"] = launches
+    (out_dir / "chip_smoke_sharded.json").write_text(
+        json.dumps(report, indent=1))
+    return launches, report
+
+
 def boundary_costs(torch, rt, engine, requests, observability=None):
     """Serve ``requests`` (all arriving at once) through one chunked pool
     with ``serve_requests``' loop, ``step_chunk`` instrumented; returns
@@ -2426,6 +2767,26 @@ def boundary_only(torch, args) -> int:
     return 0
 
 
+def sharded_only(torch, args) -> int:
+    """``--sharded-only``: the build and phase 9, nothing else."""
+    from repro_torch import serving as rt
+    from repro_torch.configs.spartus_lstm import DELTA_LSTM_2L_1024H
+    from repro_torch.kernels import _build
+    from repro_torch.models import lstm_am
+
+    out_dir = Path(args.out)
+    out_dir.mkdir(parents=True, exist_ok=True)
+    print(f"device: {nvidia_smi()} | {torch.cuda.device_count()} card(s)",
+          flush=True)
+    _build.build()
+    am_cfg = DELTA_LSTM_2L_1024H
+    params = servable_params(lstm_am, am_cfg, args.seed)
+    requests = make_requests(rt, am_cfg, np.random.default_rng(args.seed))
+    launches, _ = sharded_runs(torch, params, am_cfg, requests, out_dir)
+    print(json.dumps({"sharded_launches": launches}), flush=True)
+    return 0
+
+
 def launcher_run(runs):
     """The launcher as its users start it, as subprocesses with a time
     limit, one per ``(args, expected output)`` of ``runs``
@@ -2470,6 +2831,9 @@ def main() -> int:
                          "build/)")
     ap.add_argument("--label", default="this tree",
                     help="with --boundary-only: a name for the tree")
+    ap.add_argument("--sharded-only", action="store_true",
+                    help="build the kernels and run phase 9 alone (see "
+                         "sharded_only) and exit")
     args = ap.parse_args()
 
     import torch
@@ -2483,6 +2847,8 @@ def main() -> int:
     sys.path.insert(0, str(Path(args.src).resolve()))
     if args.boundary_only:
         return boundary_only(torch, args)
+    if args.sharded_only:
+        return sharded_only(torch, args)
     from repro_torch import serving
     from repro_torch.configs.spartus_lstm import DELTA_LSTM_2L_1024H
     from repro_torch.kernels import _build
@@ -2571,6 +2937,10 @@ def main() -> int:
         check(n == 0, f"{name}: {n} launches on the zoo's training path, "
                       f"which reaches no kernel")
 
+    # phase 9: sharded serving at full width
+    sharded_launches, _ = sharded_runs(torch, params, am_cfg, requests,
+                                       out_dir)
+
     kernels = []
     for name, row in rows.items():
         # stsp_spmv (B=1) serves only the batch-1 engine; the others are
@@ -2585,7 +2955,8 @@ def main() -> int:
                 trained=trained_launches[name],
                 contracts=contract_launches[name],
                 zoo=zoo_launches[name],
-                zoo_train=zoo_train_launches[name]),
+                zoo_train=zoo_train_launches[name],
+                sharded=sharded_launches[name]),
             "max_abs_err": row["max_abs_err"], "ms": row["ms"],
             "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
             "bound_by": row["bound_by"], "library_ms": row["library_ms"],

@@ -12,12 +12,19 @@ DeviceLike = Union[str, torch.device, None]
 
 def resolve_device(device: DeviceLike = None) -> torch.device:
     """``None`` means ``cuda``.  Asking for CUDA without a usable card
-    raises: the port never falls back to the host silently."""
+    raises: the port never falls back to the host silently.  A ``cuda``
+    without an index resolves to the current card, ``cuda:<index>``, so
+    that two resolved devices name one card exactly when they are
+    ``==``."""
     dev = torch.device("cuda" if device is None else device)
-    if dev.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError(
-            "a CUDA device was requested but torch.cuda.is_available() is "
-            "False; pass device='cpu' to run the plain PyTorch versions")
+    if dev.type == "cuda":
+        if not torch.cuda.is_available():
+            raise RuntimeError(
+                "a CUDA device was requested but torch.cuda.is_available() "
+                "is False; pass device='cpu' to run the plain PyTorch "
+                "versions")
+        if dev.index is None:
+            dev = torch.device("cuda", torch.cuda.current_device())
     return dev
 
 
@@ -59,43 +66,51 @@ class HostCopy:
     """Device->host copies of ``tensors``, enqueued at construction.
 
     On a card each tensor is copied into a pinned host buffer with
-    ``non_blocking=True`` on the current stream, and one CUDA event is
-    recorded after the copies: they are ordered after the work already
-    enqueued (the chunk whose rows they hold) and before any work
-    enqueued later (the next chunk, which overwrites those rows).
-    ``wait()`` waits on that event only and returns the host tensors.
-    On the CPU the copies are plain and ``wait()`` returns at once."""
+    ``non_blocking=True`` on its device's current stream, and one CUDA
+    event is recorded on each device's stream after its copies: they are
+    ordered after the work already enqueued there (the chunk whose rows
+    they hold) and before any work enqueued later (the next chunk, which
+    overwrites those rows).  ``wait()`` waits on those events only and
+    returns the host tensors.  On the CPU the copies are plain and
+    ``wait()`` returns at once."""
 
-    __slots__ = ("host", "_event")
+    __slots__ = ("host", "_events")
 
     def __init__(self, *tensors: torch.Tensor):
-        self._event = None
+        self._events = []
         if tensors and tensors[0].device.type == "cuda":
             self.host = []
+            devices = []
             for t in tensors:
                 buf = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
                 buf.copy_(t, non_blocking=True)
                 self.host.append(buf)
-            self._event = torch.cuda.Event()
-            self._event.record()
+                if t.device not in devices:
+                    devices.append(t.device)
+            for dev in devices:
+                event = torch.cuda.Event()
+                event.record(torch.cuda.current_stream(dev))
+                self._events.append(event)
         else:
             self.host = [t.detach().clone() for t in tensors]
+
+    def _result(self):
+        return self.host[0] if len(self.host) == 1 else self.host
 
     def poll(self):
         """The host tensors if the copies have landed, else None; never
         waits."""
-        if self._event is not None:
-            if not self._event.query():
-                return None
-            self._event = None
-        return self.host[0] if len(self.host) == 1 else self.host
+        if not all(event.query() for event in self._events):
+            return None
+        self._events = []
+        return self._result()
 
     def wait(self):
         """The host tensors (one, or a list for several), once copied."""
-        if self._event is not None:
-            self._event.synchronize()
-            self._event = None
-        return self.host[0] if len(self.host) == 1 else self.host
+        for event in self._events:
+            event.synchronize()
+        self._events = []
+        return self._result()
 
     def numpy(self):
         out = self.wait()

@@ -6,13 +6,20 @@
   aten-op trace, and the checker asserts the trace (no collectives, no
   host transfers, donation honoured in place, a float32 ceiling, op
   budgets).
-* ``lockorder`` — the runtime lock-order recorder and lock factory.
-
-The reference's static passes (``lint`` and ``concurrency``) are not
-copied: they read every ``.py`` under ``src/``, the port's included.
+* ``lint`` — the reference's AST rules in PyTorch's idiom
+  (iota-gather, eager-scatter, aliased-donation, blocking-in-driver,
+  wallclock-in-jit) over ``src/repro_torch/``.
+* ``concurrency``/``lockorder`` — the static guarded-by and
+  await-under-lock passes over the same files, and the runtime
+  lock-order recorder and lock factory.
 
     PYTHONPATH=src python -m pytest -q tests/test_torch_contracts.py
+    PYTHONPATH=src python -m repro_torch.analysis.lint [--concurrency]
+
+The names of ``lint`` and ``concurrency`` load on first use, so that
+``python -m repro_torch.analysis.lint`` runs the module it imports.
 """
+import importlib
 from repro_torch.analysis import hlo  # noqa: F401
 from repro_torch.analysis.contracts import (  # noqa: F401
     ContractReport,
@@ -31,6 +38,25 @@ from repro_torch.analysis.lockorder import (  # noqa: F401
     make_lock,
 )
 
+_LAZY = {
+    "LintFinding": ("lint", "LintFinding"),
+    "RULES": ("lint", "RULES"),
+    "RULE_NAMES": ("lint", "RULE_NAMES"),
+    "lint_repo": ("lint", "lint_repo"),
+    "lint_source": ("lint", "lint_source"),
+    "CONCURRENCY_RULE_NAMES": ("concurrency", "CONCURRENCY_RULE_NAMES"),
+    "check_concurrency_repo": ("concurrency", "check_repo"),
+    "check_concurrency_source": ("concurrency", "check_source"),
+}
+
+
+def __getattr__(name):
+    if name in _LAZY:
+        module, attr = _LAZY[name]
+        return getattr(importlib.import_module(f"{__name__}.{module}"), attr)
+    raise AttributeError(f"module {__name__!r} has no attribute {name!r}")
+
+
 __all__ = [
     "ContractReport",
     "HotpathContract",
@@ -45,4 +71,5 @@ __all__ = [
     "LockOrderRecorder",
     "make_lock",
     "hlo",
+    *_LAZY,
 ]

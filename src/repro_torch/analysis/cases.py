@@ -8,10 +8,13 @@ gamma=0.75, m=4, a 4-slot pool, 4-frame chunks, NZI capacity 1.0).
 ``build_cases()`` returns the reference's 14 unsharded cases by the same
 names; ``build_cases(width="full")`` builds them at the 2x1024 model's
 widths (D=123, H=1024, 41 classes, gamma=0.9375, m=64, a 16-slot pool,
-16-frame chunks), as ``chip_smoke.py`` checks them on the card.  At
-capacity 1.0 the dense route never clips, so ``served_cases()`` adds the
-served routes again at the capacity the port serves them.  The sharded
-case waits for slot sharding.
+16-frame chunks), as ``chip_smoke.py`` checks them on the card, and
+``include_sharded`` (the default) appends the reference's
+``step_chunk/sharded-4dev``: a pool of twice the slots over 4 logical
+shards (``launch.mesh.emulated_devices``), checked by
+``contracts.check_shards`` as well.  At capacity 1.0 the dense route
+never clips, so ``served_cases()`` adds the served routes again at the
+capacity the port serves them.
 
 The weights are the port's own seeded ``init_params`` (the reference's
 ``jax.random`` draws cannot be regenerated in torch) and the inputs are
@@ -24,12 +27,15 @@ from __future__ import annotations
 
 import dataclasses
 import functools
-from typing import Any, Callable, Dict, List, Mapping, Sequence, Tuple
+from typing import (
+    Any, Callable, Dict, FrozenSet, List, Mapping, Optional, Sequence, Tuple,
+)
 
 import numpy as np
 import torch
 
 from repro_torch._device import DeviceLike, resolve_device, upload
+from repro_torch.analysis import hlo
 
 # Test-scale model constants, the reference's (repro/analysis/cases.py)
 INPUT_DIM = 20
@@ -69,11 +75,16 @@ WIDTHS = {
 
 @dataclasses.dataclass
 class BuiltCase:
-    """A callable plus concrete arguments, ready to trace."""
+    """A callable plus concrete arguments, ready to trace.  A sharded
+    chunk also carries each shard's per-slot storages and the op
+    histogram of the unsharded chunk at the shard's batch
+    (``contracts.check_shards``)."""
 
     fn: Any
     args: Tuple[Any, ...]
     kwargs: Dict[str, Any]
+    shards: Tuple[FrozenSet[int], ...] = ()
+    shard_histogram: Optional[Dict[str, int]] = None
 
 
 @dataclasses.dataclass
@@ -137,29 +148,51 @@ def _starts(width: Width, pattern: Sequence[int]) -> np.ndarray:
 # -- the pool-chunk recipe ----------------------------------------------------
 
 
+def _mark_shard(i: int) -> None:
+    hlo.mark(f"shard{i}")
+
+
 def _chunk_case(pool) -> BuiltCase:
     """The chunk step exactly as ``SessionPool.step_chunk`` stages it,
-    with the masks uploaded as the pool's boundary uploads them."""
+    with the masks uploaded as the pool's boundary uploads them: one
+    shard's ``step_chunk``, or the pool's own ``sharding.dispatch_chunk``
+    over every shard, each shard's part of a trace its section
+    (``hlo.mark``)."""
+    from repro_torch.serving import sharding as shardlib
+
     pool._reap_cancelled()
     active, reset = pool._masks()
     pool._flush_uploads()
-    dev = pool.engine.device
-    return BuiltCase(
-        fn=pool.engine.step_chunk,
-        args=(pool.state, pool._frames, pool._lengths, upload(active, dev),
-              upload(reset, dev), pool._out),
-        kwargs={"n_frames": pool.chunk_frames})
+    parts = [(sh.engine, sh.state, sh.frames, sh.lengths,
+              upload(active[sh.lo:sh.hi], sh.engine.device),
+              upload(reset[sh.lo:sh.hi], sh.engine.device), sh.out)
+             for sh in pool._shards]
+    kwargs = {"n_frames": pool.chunk_frames}
+    if len(parts) == 1:
+        return BuiltCase(fn=parts[0][0].step_chunk, args=parts[0][1:],
+                         kwargs=kwargs)
+    engines, *args = zip(*parts)
+    return BuiltCase(fn=shardlib.dispatch_chunk, args=tuple(args),
+                     kwargs={**kwargs, "engines": engines,
+                             "on_shard": _mark_shard})
 
 
-def built_pool_chunk(engine: Any, feats: Sequence[np.ndarray], width: Width
-                     ) -> BuiltCase:
-    """Admit ``feats`` (cycled) into every slot of a fresh SessionPool and
-    stage its chunk step as a serving run would."""
+def built_pool_chunk(engine: Any, feats: Sequence[np.ndarray], width: Width,
+                     capacity: Optional[int] = None,
+                     n_devices: Optional[int] = None) -> BuiltCase:
+    """Admit ``feats`` (cycled) into every slot of a fresh SessionPool
+    (``width.slots`` of them by default; sharded over ``n_devices``
+    logical shards on the engine's device) and stage its chunk step as a
+    serving run would."""
+    from repro_torch.launch.mesh import emulated_devices
     from repro_torch.serving.scheduler import SessionPool, StreamRequest
 
-    pool = SessionPool(engine, capacity=width.slots,
-                       max_frames=width.max_frames, chunk_frames=width.chunk)
-    for i in range(width.slots):
+    capacity = width.slots if capacity is None else capacity
+    with emulated_devices(n_devices or 1):
+        pool = SessionPool(engine, capacity=capacity,
+                           max_frames=width.max_frames,
+                           chunk_frames=width.chunk, n_devices=n_devices)
+    for i in range(capacity):
         pool.admit(StreamRequest(100 + i, 0, feats[i % len(feats)]), 0)
     return _chunk_case(pool)
 
@@ -207,6 +240,29 @@ def _built_step_chunk_restored(width: Width,
     pool2 = SessionPool(engine, **kw)
     ckptlib.restore_into(pool2, ckpt)
     return _chunk_case(pool2)
+
+
+def _built_step_chunk_sharded(width: Width, device: torch.device,
+                              n_shards: int = 4) -> BuiltCase:
+    """The reference's sharded case: twice the slots (8 at test scale)
+    over ``n_shards`` logical shards, with each shard's per-slot
+    storages and the op histogram of the unsharded chunk at the shard's
+    batch, which every shard's part of the trace must match."""
+    engine = _engine(width, device)
+    feats = _feats(width)
+    capacity = 2 * width.slots
+    per = dataclasses.replace(width, slots=capacity // n_shards)
+    one = built_pool_chunk(engine, feats, per)
+    _, trace = hlo.trace(one.fn, *one.args, **one.kwargs)
+    built = built_pool_chunk(engine, feats, width, capacity=capacity,
+                             n_devices=n_shards)
+    state, frames, lengths, _, _, out = built.args
+    built.shards = tuple(
+        frozenset(t.untyped_storage().data_ptr()
+                  for t in (*st.tensors(), fr, ln, o))
+        for st, fr, ln, o in zip(state, frames, lengths, out))
+    built.shard_histogram = dict(hlo.op_histogram(trace))
+    return built
 
 
 def _spmv_args(width: Width, device: torch.device, spmv_path: str,
@@ -287,10 +343,11 @@ def _built_gather_frames(width: Width, device: torch.device) -> BuiltCase:
     return BuiltCase(fn=ops.gather_frames, args=(frames, cursor), kwargs={})
 
 
-def build_cases(*, width: str = "test",
-                device: DeviceLike = None) -> List[ContractCase]:
+def build_cases(*, width: str = "test", device: DeviceLike = None,
+                include_sharded: bool = True) -> List[ContractCase]:
     """The reference's 14 unsharded cases at ``width`` ("test" or "full")
-    on ``device`` (``cuda`` by default).
+    on ``device`` (``cuda`` by default), then, with ``include_sharded``,
+    its ``step_chunk/sharded-4dev`` case on 4 logical shards.
 
     Importing the annotated modules registers the contracts themselves,
     so that happens before any lookup."""
@@ -303,7 +360,7 @@ def build_cases(*, width: str = "test",
     def at(fn, *args, **kwargs):
         return functools.partial(fn, w, dev, *args, **kwargs)
 
-    return [
+    cases = [
         ContractCase("step_frames/unsharded", "step_frames",
                      at(_built_step_frames)),
         ContractCase("step_chunk/dense-mirror", "step_chunk",
@@ -336,6 +393,10 @@ def build_cases(*, width: str = "test",
         ContractCase("gather_frames", "gather_frames",
                      at(_built_gather_frames)),
     ]
+    if include_sharded:
+        cases.append(ContractCase("step_chunk/sharded-4dev", "step_chunk",
+                                  at(_built_step_chunk_sharded)))
+    return cases
 
 
 def served_cases(*, width: str = "test",

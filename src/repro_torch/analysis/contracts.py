@@ -30,6 +30,12 @@ kernel that keeps the mirror at its packed dtype instead of a float64
 GEMM).  One clause of a case differs, and :func:`served_clip_budget`
 states it: the dense-mirror chunk's ``sort`` at the capacity the port
 serves.
+
+A sharded pool's chunk (``cases``' ``step_chunk/sharded-4dev``) is one
+call per shard; :func:`check_shards` adds the counterpart of the
+reference's zero-collectives pin on it: no op of one shard's part
+touches another shard's tensors, and each part's op histogram is the
+unsharded chunk's.
 """
 from __future__ import annotations
 
@@ -281,6 +287,42 @@ def check_aliasing(contract: HotpathContract,
                       f"clobbers the other")]
 
 
+def check_shards(contract: str, trace: hlo.OpTrace,
+                 shards: Sequence[frozenset],
+                 histogram: Mapping[str, int]) -> List[Violation]:
+    """The sharded chunk's clauses.  ``shards`` holds each shard's
+    per-slot storages (state, frames, lengths, logits bank), in shard
+    order; ``histogram`` is the unsharded chunk's op histogram at the
+    shard's batch.  The trace must fall in one marked section per shard
+    (``hlo.mark``), no op of a section may read or write another shard's
+    storages (a copy between shards), and every section's op histogram
+    must equal ``histogram``."""
+    out: List[Violation] = []
+    parts = hlo.sections(trace)
+    if list(parts) != [f"shard{i}" for i in range(len(shards))]:
+        return [Violation(contract, "shards",
+                          f"expected one section per shard for "
+                          f"{len(shards)} shards, got {list(parts)}")]
+    for i, entries in enumerate(parts.values()):
+        others = frozenset().union(*(s for j, s in enumerate(shards)
+                                     if j != i))
+        crossing = [e.line() for e in entries if e.storages & others]
+        if crossing:
+            out.append(Violation(
+                contract, "cross_shard",
+                f"shard {i}: {len(crossing)} op(s) touch another shard's "
+                f"tensors, e.g. {crossing[0]!r}"))
+        got = dict(hlo.op_histogram(entries))
+        if got != dict(histogram):
+            diff = {op: (got.get(op, 0), histogram.get(op, 0))
+                    for op in set(got) | set(histogram)
+                    if got.get(op, 0) != histogram.get(op, 0)}
+            out.append(Violation(
+                contract, "shard_histogram",
+                f"shard {i}: op counts (shard, unsharded) differ: {diff}"))
+    return out
+
+
 def check_built(case: "ContractCase", built: "BuiltCase") -> ContractReport:  # noqa: F821
     """Run one built case once under an op trace and check every clause
     of its contract (with the case's budget overrides)."""
@@ -295,6 +337,9 @@ def check_built(case: "ContractCase", built: "BuiltCase") -> ContractReport:  # 
     violations = check_aliasing(contract, before)
     result, trace = hlo.trace(built.fn, *built.args, **built.kwargs)
     violations += check_trace(contract, trace)
+    if built.shards:
+        violations += check_shards(contract.name, trace, built.shards,
+                                   built.shard_histogram)
     kept = 0
     if contract.donates:
         found, kept = check_donation(contract, donated, before, result)

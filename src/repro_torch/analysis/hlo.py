@@ -39,13 +39,21 @@ thing free.  Collectives are the ops of the ``c10d`` and
 ``_local_scalar_dense`` (``.item()``, ``int(t)``, ``.tolist()``),
 ``nonzero`` and any copy whose destination is the CPU and whose source is
 not.
+
+**Sections.**  A case whose call runs several parts (the sharded pool's
+chunk, one per shard) marks where each begins with :func:`mark`; the
+trace's :func:`sections` split its entries there, and every entry records
+the storages of the tensors it touched, so a checker can tell which
+part's tensors an op reads or writes.
 """
 from __future__ import annotations
 
 import dataclasses
 import functools
 from collections import Counter
-from typing import Any, Callable, Iterable, List, Optional, Tuple
+from typing import (
+    Any, Callable, Dict, FrozenSet, Iterable, List, Optional, Tuple,
+)
 
 import torch
 from torch.utils._python_dispatch import (
@@ -102,6 +110,8 @@ class OpEntry:
     families: Tuple[str, ...] = ()
     host_transfer: bool = False
     collective: bool = False
+    # storages of the tensors the call read or wrote
+    storages: FrozenSet[int] = frozenset()
 
     def line(self) -> str:
         tags = "".join(f" #{f}" for f in self.families)
@@ -124,6 +134,11 @@ def _tensors(tree: Any) -> Iterable[torch.Tensor]:
 def _metas(tree: Any) -> Tuple[TensorMeta, ...]:
     return tuple(TensorMeta(t.dtype, tuple(t.shape), t.device.type)
                  for t in _tensors(tree))
+
+
+def _storages(tree: Any) -> FrozenSet[int]:
+    return frozenset(t.untyped_storage().data_ptr() for t in _tensors(tree)
+                     if t.numel())
 
 
 def _stride_order(t: torch.Tensor) -> Tuple[int, ...]:
@@ -162,7 +177,8 @@ def _aten_entry(func, args, kwargs, out) -> OpEntry:
         op=f"{func.namespace}.{packet}",
         inputs=_metas((args, kwargs)), outputs=_metas(out),
         families=tuple(families), host_transfer=host,
-        collective=func.namespace in COLLECTIVE_NAMESPACES)
+        collective=func.namespace in COLLECTIVE_NAMESPACES,
+        storages=_storages((args, kwargs, out)))
 
 
 class OpTrace(TorchDispatchMode):
@@ -191,7 +207,8 @@ class OpTrace(TorchDispatchMode):
         if not self._hidden:
             self.entries.append(OpEntry(
                 op=f"kernel:{name}", inputs=_metas((args, kwargs)),
-                outputs=_metas(out), families=KERNEL_FAMILIES.get(name, ())))
+                outputs=_metas(out), families=KERNEL_FAMILIES.get(name, ()),
+                storages=_storages((args, kwargs, out))))
         return out
 
 
@@ -219,6 +236,29 @@ def kernel_region(name: str):
     return deco
 
 
+def mark(label: str) -> None:
+    """Inside a trace, open the section ``label`` (a ``mark:<label>``
+    entry, in no family and in no histogram); outside one, nothing."""
+    tracer = _active_trace()
+    if tracer is not None:
+        tracer.entries.append(OpEntry(op=f"mark:{label}", inputs=(),
+                                      outputs=()))
+
+
+def sections(t: OpTrace) -> Dict[str, List[OpEntry]]:
+    """The trace's entries by the section their last :func:`mark` opened
+    (entries before the first mark under ``""``, if any)."""
+    out: Dict[str, List[OpEntry]] = {}
+    label = ""
+    for e in t.entries:
+        if e.op.startswith("mark:"):
+            label = e.op[len("mark:"):]
+            out[label] = []
+        else:
+            out.setdefault(label, []).append(e)
+    return out
+
+
 def trace(fn: Callable, *args, **kwargs) -> Tuple[Any, OpTrace]:
     """Run ``fn(*args, **kwargs)`` once under an :class:`OpTrace`:
     (its result, the trace)."""
@@ -240,11 +280,14 @@ def host_transfer_lines(t: OpTrace) -> List[str]:
     return [e.line() for e in t.entries if e.host_transfer]
 
 
-def op_histogram(t: OpTrace) -> Counter:
-    """Entries by family; an aten op of no family under its own name, a
-    kernel region under its name and its families."""
+def op_histogram(t: Any) -> Counter:
+    """Entries (of a trace, or a list of them) by family; an aten op of no
+    family under its own name, a kernel region under its name and its
+    families.  Section marks are not counted."""
     counts: Counter = Counter()
-    for e in t.entries:
+    for e in getattr(t, "entries", t):
+        if e.op.startswith("mark:"):
+            continue
         if e.op.startswith("kernel:") or not e.families:
             counts[e.op] += 1
         for f in e.families:

@@ -4,9 +4,12 @@
 //
 // Plain C interface, bound from Python with ctypes
 // (src/repro_torch/kernels/_build.py).  Every entry point takes the CUDA
-// device index first and the stream last, launches on that stream (the
-// caller passes PyTorch's current stream), allocates nothing, does not
-// synchronise, and returns cudaGetLastError().
+// device index first and the stream last, makes that device current for
+// the call and gives the caller's current device back on return (a pool
+// sharded over several cards launches on each in turn, and PyTorch reads
+// the current device for every tensor it places on "cuda"), launches on
+// that stream (the caller passes PyTorch's current stream), allocates
+// nothing, does not synchronise, and returns cudaGetLastError().
 //
 // Arithmetic that feeds the recurrence is written with explicit
 // round-to-nearest intrinsics (__fmul_rn / __fadd_rn) so nvcc cannot fuse
@@ -24,6 +27,28 @@
 #include <algorithm>
 
 namespace {
+
+// The entry point's device made current for the scope; the caller's
+// current device is restored when the scope ends.
+struct DeviceScope {
+  int prev = -1;
+  cudaError_t err = cudaSuccess;
+  explicit DeviceScope(int device) {
+    err = cudaGetDevice(&prev);
+    if (err != cudaSuccess) {
+      prev = -1;
+    } else if (prev == device) {
+      prev = -1;
+    } else {
+      err = cudaSetDevice(device);
+    }
+  }
+  ~DeviceScope() {
+    if (prev >= 0) cudaSetDevice(prev);
+  }
+  DeviceScope(const DeviceScope&) = delete;
+  DeviceScope& operator=(const DeviceScope&) = delete;
+};
 
 // ---------------------------------------------------------------------------
 // delta_encode: the IPU stage of one layer-step
@@ -621,7 +646,8 @@ int launch_stsp_spmv(int device, const void* val, const void* lidx,
                      const int* idx, const float* ds, float* y, int B, int K,
                      int Q, int M, int BLEN, int S, void* stream) {
   constexpr int kMaxRows = kSpmvLanes * kSpmvMaxRowRegs;
-  cudaError_t err = cudaSetDevice(device);
+  const DeviceScope scope(device);
+  cudaError_t err = scope.err;
   if (err != cudaSuccess) return static_cast<int>(err);
   if (B == 0 || M == 0 || S == 0) return 0;
   if (B < 0 || K < 0 || Q < 0 || M < 0 || BLEN < 0 || S > kMaxRows ||
@@ -862,7 +888,8 @@ template <typename W>
 int launch_dense_mirror(int device, const float* ds, const W* wt,
                         const float* scale, float* y, int B, int Q, int N,
                         void* stream) {
-  cudaError_t err = cudaSetDevice(device);
+  const DeviceScope scope(device);
+  cudaError_t err = scope.err;
   if (err != cudaSuccess) return static_cast<int>(err);
   if (B < 0 || Q < 0 || N < 0) {
     return static_cast<int>(cudaErrorInvalidValue);
@@ -904,7 +931,8 @@ int spartus_delta_encode_step(int device, const float* x, const float* h,
                               float* s_hat_out, int* nnz, int B, int D,
                               int H, float theta, int quantize, float scale,
                               float qmin, float qmax, void* stream) {
-  cudaError_t err = cudaSetDevice(device);
+  const DeviceScope scope(device);
+  cudaError_t err = scope.err;
   if (err != cudaSuccess) return static_cast<int>(err);
   const int F = D + H;
   if (B == 0) return 0;
@@ -939,7 +967,8 @@ int spartus_lstm_pointwise_step(int device, const float* dm, const float* y,
                                 const float* c, const unsigned char* active,
                                 float* h_out, float* dm_out, float* c_out,
                                 float* h_state, int B, int H, void* stream) {
-  cudaError_t err = cudaSetDevice(device);
+  const DeviceScope scope(device);
+  cudaError_t err = scope.err;
   if (err != cudaSuccess) return static_cast<int>(err);
   const size_t n = static_cast<size_t>(B) * H;
   if (n == 0) return 0;

@@ -8,9 +8,14 @@ it spans in row-major order.  Shapes follow the reference:
 A mesh built for the ``meta`` device is shape-only (the reference's
 ``AbstractMesh``): the partition rules read its shape, and nothing can be
 placed on it.  The production meshes are shape-only: no single host of
-the port holds 256 cards.  Placing the shards of one tree on more than
-one card is not ported (ROADMAP.md queue 1 item 10); a mesh of one
-device places every leaf whole on it.
+the port holds 256 cards.
+
+``emulated_devices(n)`` makes ``n`` copies of the one host device, or of
+``cuda:0``, visible to mesh building inside a ``with`` block: the
+counterpart of the reference's
+``XLA_FLAGS=--xla_force_host_platform_device_count``.  The serving pool
+runs its slot shards as logical shards on one device that way, so code
+that places shards never assumes two shards' devices differ.
 
 ``data_axes()`` returns the axes a global batch shards over (pod folds
 into data parallelism); ``model_axis()`` the tensor-parallel axis.
@@ -49,6 +54,29 @@ def _visible(device: torch.device):
         return [torch.device("cuda", i)
                 for i in range(torch.cuda.device_count())]
     return [torch.device(device.type)]
+
+
+@contextlib.contextmanager
+def emulated_devices(n: int):
+    """Within the block, ``n`` copies of the host device (``cpu``) or of
+    ``cuda:0`` are the visible devices of either type; the real
+    ``_visible`` is restored on exit.  A mesh built inside keeps its
+    devices after the block."""
+    global _visible
+    if n < 1:
+        raise ValueError(f"n must be >= 1, got {n}")
+    real = _visible
+
+    def widened(device: torch.device):
+        if device.type == "cuda":
+            return [torch.device("cuda", 0)] * n
+        return [torch.device(device.type)] * n
+
+    _visible = widened
+    try:
+        yield
+    finally:
+        _visible = real
 
 
 def compat_make_mesh(shape, axes, device: DeviceLike = None) -> Mesh:

@@ -30,8 +30,16 @@ socket.
     PYTHONPATH=src python -m repro_torch.launch.serve --spartus --async \
         --pool 8 --clients 0 --port 8765   # serve forever on :8765
 
-``--devices`` above 1 needs slot sharding (ROADMAP.md queue 1 item 10),
-which is not ported: it exits with an error.
+``--devices N`` (with ``--pool`` or ``--async``) shards the pool's slot
+dimension over N devices (`serving/sharding.py`) and prints the shard
+count; N above the visible cards exits with the overcommit error.  For
+now sharding shows placement only and lowers throughput, on one card
+or on N: one host thread issues every shard's launches in turn, and the
+pool is host-bound, so the host's cost per chunk grows N times
+(ROADMAP.md queue 2 item 10 plans the overlapped dispatch):
+
+    PYTHONPATH=src python -m repro_torch.launch.serve --spartus --async \
+        --pool 16 --chunk-frames 16 --clients 8 --hidden 1024 --devices 2
 
 The --async mode exposes the `AsyncSpartusServer` over a localhost
 TCP socket speaking newline-delimited JSON (one object per line):
@@ -406,6 +414,25 @@ def serve_arch(args):
           f"-> {dt*1e3:.2f} ms/token ({args.batch/dt:.1f} tok/s)")
 
 
+def pool_devices(args, device, capacity: int):
+    """``--devices`` as the pool's ``n_devices`` (None for 0), checked
+    against the visible devices before anything is built: more than are
+    visible exits with the overcommit error."""
+    if args.devices <= 0:
+        return None
+    from repro_torch.serving import sharding as shardlib
+
+    try:
+        mesh = shardlib.make_pool_mesh(args.devices, device)
+    except ValueError as exc:
+        sys.exit(f"serve: --devices {args.devices}: {exc}")
+    print(f"[serve] sharding the pool's {capacity} slots over "
+          f"{args.devices} device(s): "
+          f"{shardlib.n_pool_shards(mesh, capacity)} shard(s) "
+          f"(slot-dimension data parallelism)")
+    return args.devices
+
+
 def serve_spartus(args):
     """The synchronous mode: train (``pretrain_retrain``: 2 epochs of CBTD
     pretrain at delta_alpha 0.5, then 1 DeltaLSTM retrain epoch, 15 steps
@@ -430,6 +457,7 @@ def serve_spartus(args):
     from repro_torch.training.trainer import TrainConfig, pretrain_retrain
 
     device = resolve_device(args.device)
+    n_devices = pool_devices(args, device, args.pool) if args.pool else None
     cfg = TrainConfig(
         model=lstm_am.LSTMAMConfig(input_dim=123, hidden_dim=args.hidden,
                                    n_layers=2, n_classes=41),
@@ -459,7 +487,8 @@ def serve_spartus(args):
             for i in range(n_req)
         ]
         results, stats = serve_requests(engine, reqs, capacity=args.pool,
-                                        chunk_frames=args.chunk_frames)
+                                        chunk_frames=args.chunk_frames,
+                                        n_devices=n_devices)
         mode = (f"chunked x{args.chunk_frames}" if args.chunk_frames
                 else "per-frame")
         print(f"[serve] pool({args.pool}, {mode}): {stats.n_requests} "
@@ -520,6 +549,8 @@ def serve_spartus_async(args):
     )
 
     device = resolve_device(args.device)
+    capacity = max(args.pool, 1)
+    n_devices = pool_devices(args, device, capacity)
     data_cfg = SpeechConfig(max_frames=64)
     cfg = lstm_am.LSTMAMConfig(input_dim=data_cfg.feat_dim,
                                hidden_dim=args.hidden, n_layers=2,
@@ -533,7 +564,6 @@ def serve_spartus_async(args):
                                   quant=QuantConfig() if args.quant
                                   else None),
         device=device)
-    capacity = max(args.pool, 1)
     chunk = args.chunk_frames or 8
     print(f"[serve] weight sparsity {engine.weight_sparsity():.1%} "
           f"(pack overflow {engine.pack_overflow_count()} clipped)")
@@ -544,6 +574,7 @@ def serve_spartus_async(args):
             engine, capacity, chunk_frames=chunk,
             target_chunk_ms=args.target_chunk_ms, max_frames=64,
             max_pending=4 * capacity,
+            n_devices=n_devices,
             observability=obs,
             overload_policy=args.overload,
             idle_timeout_s=args.idle_timeout or None,
@@ -645,9 +676,11 @@ def main(argv=None):
                     help="frames advanced per device dispatch (0 = "
                          "per-frame ticks; --async defaults to 8)")
     ap.add_argument("--devices", type=int, default=0,
-                    help="shard the pool's slot dimension over N GPUs: "
-                         "not ported (ROADMAP.md queue 1 item 10); 0 or 1 "
-                         "= one device")
+                    help="--pool/--async: shard the pool's slot dimension "
+                         "over N devices (0 = one device, unsharded); "
+                         "for now this shows placement only and lowers "
+                         "throughput: every shard is dispatched from one "
+                         "host thread")
     ap.add_argument("--async", dest="async_mode", action="store_true",
                     help="asyncio streaming front-end over localhost "
                          "TCP/JSON-lines (requires --spartus)")
@@ -681,9 +714,6 @@ def main(argv=None):
                          "answers a retriable typed error with a "
                          "retry_after_ms hint")
     args = ap.parse_args(argv)
-    if args.devices > 1:
-        ap.error(f"--devices {args.devices}: slot sharding over several "
-                 f"GPUs is not ported (ROADMAP.md queue 1 item 10)")
     if args.async_mode and not args.spartus:
         ap.error("--async requires --spartus")
     if args.async_mode:

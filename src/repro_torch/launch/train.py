@@ -119,17 +119,18 @@ def next_batch(cfg, data: LMDataset, step: int, batch: int, seq: int):
 
 
 def train(args) -> TrainRun:
-    device = resolve_device(args.device)
-    cfg = get_arch(args.arch)
-    if args.reduced:
-        cfg = cfg.reduced()
-
-    n_dev = _n_devices(device)
+    # several cards are refused before any card is touched
+    n_dev = _n_devices(torch.device(args.device))
     if n_dev > 1:
         raise SystemExit(
             f"train: {n_dev} cards are visible; placing the trainer's shards "
             f"on several cards is not ported (ROADMAP.md queue 1 item 10): "
             f"expose one card (CUDA_VISIBLE_DEVICES=0)")
+    device = resolve_device(args.device)
+    cfg = get_arch(args.arch)
+    if args.reduced:
+        cfg = cfg.reduced()
+
     mesh = best_mesh_for(n_dev, device)
     print(f"[train] arch={cfg.name} mesh={mesh.shape} devices={n_dev}",
           flush=True)

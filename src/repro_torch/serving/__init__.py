@@ -9,7 +9,10 @@
                      partial logits, the non-blocking tick; the
                      synchronous serve_requests driver
 - `async_server`   — AsyncSpartusServer: the asyncio streaming front-end
-- `checkpoint`     — per-session snapshot/restore and pool checkpoints
+- `sharding`       — slot-dimension data parallelism: the pool's slabs
+                     split into one block of slots per device
+- `checkpoint`     — per-session snapshot/restore and pool checkpoints,
+                     across capacities and shard counts
 - `faults`         — typed errors, seeded fault injection, backoff
 - `metrics`        — metrics registry, per-chunk time series, tracing
 - `telemetry`      — device-resident per-(layer, slot) sparsity counters

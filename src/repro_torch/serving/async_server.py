@@ -226,9 +226,10 @@ class AsyncSpartusServer:
         tick before pumping again.  ``False`` keeps ticks on the loop
         (slightly less overhead; fine when clients batch their sends).
     n_devices:
-        ``None`` or 1: one GPU.  Slot sharding over several GPUs is not
-        ported (ROADMAP.md queue 1 item 10); other values raise
-        NotImplementedError.
+        shard the pool's slot dimension over N devices
+        (`SessionPool(n_devices=...)`, `serving/sharding.py`); ``None`` =
+        one shard on the engine's device.  The watchdog rebuilds a
+        sharded pool from the same kwargs.
     observability:
         a `PoolObservability` (serving/metrics.py): the pool folds every
         chunk boundary into its registry/ring buffer, and the driver
@@ -338,8 +339,6 @@ class AsyncSpartusServer:
             dev, stream = self._engine.device, None
             if dev.type == "cuda":
                 # the worker is bound to this thread's card and stream
-                if dev.index is None:
-                    dev = torch.device("cuda", torch.cuda.current_device())
                 stream = torch.cuda.current_stream(dev)
             self._exec = ThreadPoolExecutor(
                 max_workers=1, thread_name_prefix="spartus-tick",

@@ -37,12 +37,13 @@ pool's retirement fetch waits for that chunk's copy only.
 """
 from __future__ import annotations
 
-from typing import Any, Dict, NamedTuple, Optional, Tuple
+import copy
+from typing import Any, Dict, List, NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
 
-from repro_torch._device import DeviceLike, HostCopy, upload
+from repro_torch._device import DeviceLike, HostCopy, resolve_device, upload
 from repro_torch.analysis.contracts import hotpath_contract
 from repro_torch.kernels import ops
 from repro_torch.models.lstm_am import LSTMAMConfig
@@ -74,6 +75,17 @@ class PoolState(NamedTuple):
         yield from self.telemetry
         yield self.cursor
 
+    @staticmethod
+    def from_tensors(leaves, n_layers: int) -> "PoolState":
+        """The inverse of ``tensors()``: ``leaves`` in its order."""
+        leaves = list(leaves)
+        return PoolState(
+            layers=tuple(BatchedLayerState(*leaves[4 * i:4 * i + 4])
+                         for i in range(n_layers)),
+            telemetry=tele.TelemetryState(
+                *leaves[4 * n_layers:4 * n_layers + 3]),
+            cursor=leaves[4 * n_layers + 3])
+
 
 class BatchedSpartusEngine(PackedSpartusModel):
     """Weight-resident multi-session engine: one CBCSC weight set, B
@@ -88,6 +100,30 @@ class BatchedSpartusEngine(PackedSpartusModel):
         # per-layer column counts on the device, for sync-free totals
         self._n_cols_dev = torch.tensor(self.n_cols, dtype=torch.float32,
                                         device=self.device)
+        self._replicas: List["BatchedSpartusEngine"] = []
+
+    def on(self, device: DeviceLike) -> "BatchedSpartusEngine":
+        """This engine with its packed weights on ``device``: the engine
+        itself when that is its own device, else a replica whose weights
+        are copied there once, on the first call (a pool's slot shards
+        each run on their own device; shards sharing a card share its
+        weights)."""
+        device = resolve_device(device)
+        if device == self.device:
+            return self
+        for rep in self._replicas:
+            if device == rep.device:
+                return rep
+        rep = copy.copy(self)
+        rep.device = device
+        rep.layers = [l.to(device) for l in self.layers]
+        rep.fcl = {k: v.to(device) for k, v in self.fcl.items()}
+        rep.logit = {k: v.to(device) for k, v in self.logit.items()}
+        rep._dm0 = [t.to(device) for t in self._dm0]
+        rep._n_cols_dev = self._n_cols_dev.to(device)
+        rep._replicas = []
+        self._replicas.append(rep)
+        return rep
 
     # -- state management ----------------------------------------------------
 

@@ -17,12 +17,16 @@ bookkeeping for its slot:
 
 Every slot is computationally independent, so a session restored into
 any slot of any pool with the same engine continues bit-identically:
-slot index and capacity are placement, not semantics.
+slot index, capacity and shard count are placement, not semantics.  A
+checkpoint written at one shard count restores at another.
 
 Fetch discipline: a snapshot takes ONE gathered device-to-host fetch
-(`HostCopy` of every tensor it reads, one event) under the pool's state
-lock.  Restores write rows in place with ``index_copy_`` (the reference
-uses jitted, donating scatters).  File IO rides `training/checkpoint.py`.
+(`HostCopy` of every tensor it reads, one event per device) under the
+pool's state lock, and joins the shards' blocks back over the pool's
+slots (`serving/sharding.py`).  Restores write rows in place with
+``index_copy_`` (the reference uses jitted, donating scatters), each
+into its shard's tensors on its device.  File IO rides
+`training/checkpoint.py`.
 """
 from __future__ import annotations
 
@@ -33,7 +37,11 @@ from typing import Any, Dict, List, Optional, TYPE_CHECKING
 
 import numpy as np
 
+import torch
+
 from repro_torch._device import HostCopy, upload
+from repro_torch.serving import sharding as shardlib
+from repro_torch.serving.batched_engine import PoolState
 from repro_torch.training.checkpoint import CheckpointManager
 
 if TYPE_CHECKING:  # import cycle: the scheduler imports this lazily
@@ -180,6 +188,39 @@ def _split(state_np: List[np.ndarray], n_layers: int):
     return layers, tel, state_np[4 * n_layers + 3]
 
 
+def _fetch_pool(pool: "SessionPool", with_buffers: bool = True):
+    """Every shard's state (and frames and logits bank) in ONE gathered
+    fetch under the pool's state lock, the shards' blocks joined back
+    over the pool's slots: (state arrays in ``PoolState.tensors()``
+    order, frames, out) as numpy; frames and out are None without
+    ``with_buffers`` (out also in per-frame mode)."""
+    n_l = len(pool.engine.layers)
+    with pool._state_lock:
+        per = []
+        for sh in pool._shards:
+            ts = list(sh.state.tensors())
+            if with_buffers:
+                ts.append(sh.frames)
+                if sh.out is not None:
+                    ts.append(sh.out)
+            per.append(ts)
+        fetch = HostCopy(*(t for ts in per for t in ts))
+    host = fetch.wait()
+    host = [host] if isinstance(host, torch.Tensor) else host
+    width = len(per[0])
+    blocks = [host[i * width:(i + 1) * width] for i in range(len(per))]
+    n_state = 4 * n_l + 4
+    state = shardlib.join_pool_state(
+        [PoolState.from_tensors(b[:n_state], n_l) for b in blocks])
+    arrays = [t.numpy() for t in state.tensors()]
+    frames = out = None
+    if with_buffers:
+        frames = torch.cat([b[n_state] for b in blocks]).numpy()
+        if width > n_state + 1:
+            out = torch.cat([b[n_state + 1] for b in blocks]).numpy()
+    return arrays, frames, out
+
+
 def snapshot_session(pool: "SessionPool", req_id: int) -> SessionSnapshot:
     """Serialize ONE live session (one gathered fetch of its rows).
 
@@ -191,20 +232,21 @@ def snapshot_session(pool: "SessionPool", req_id: int) -> SessionSnapshot:
     k = pool._by_req[req_id]
     sess = pool._slots[k]
     with pool._state_lock:
-        state = pool.state
-        tensors = [getattr(st, f)[k] for st in state.layers
+        sh = pool._shards[pool._shard_of(k)]
+        j = k - sh.lo
+        tensors = [getattr(st, f)[j] for st in sh.state.layers
                    for f in _LAYER_FIELDS]
-        tensors += [t[:, k] for t in state.telemetry]
-        tensors.append(pool._frames[k])
-        if pool._out is not None:
-            tensors.append(pool._out[k])
+        tensors += [t[:, j] for t in sh.state.telemetry]
+        tensors.append(sh.frames[j])
+        if sh.out is not None:
+            tensors.append(sh.out[j])
         fetch = HostCopy(*tensors)
     host = fetch.numpy()
     n_l = len(pool.engine.layers)
     layer_rows = [host[4 * i:4 * i + 4] for i in range(n_l)]
     tel_col = host[4 * n_l:4 * n_l + 3]
     frames_row = host[4 * n_l + 3]
-    out_row = host[4 * n_l + 4] if pool._out is not None else None
+    out_row = host[4 * n_l + 4] if pool.chunk_frames else None
     return _snap(pool, sess, k, layer_rows, tel_col, frames_row, out_row)
 
 
@@ -215,16 +257,8 @@ def snapshot_pool(pool: "SessionPool") -> PoolCheckpoint:
     resolve them.  Like the reference's, a snapshot reads the driver's
     host bookkeeping (slots, staged frames, cursors), so the thread that
     drives the pool takes it, between ticks."""
-    with pool._state_lock:
-        tensors = list(pool.state.tensors()) + [pool._frames]
-        if pool._out is not None:
-            tensors.append(pool._out)
-        fetch = HostCopy(*tensors)
-    host = fetch.numpy()
-    n_l = len(pool.engine.layers)
-    layers, tel, _ = _split(host, n_l)
-    frames = host[4 * n_l + 4]
-    out = host[4 * n_l + 5] if pool._out is not None else None
+    host, frames, out = _fetch_pool(pool)
+    layers, tel, _ = _split(host, len(pool.engine.layers))
     sessions: List[SessionSnapshot] = []
     for k, sess in enumerate(pool._slots):
         if sess is None:
@@ -297,13 +331,14 @@ def restore_session(pool: "SessionPool", snap: SessionSnapshot) -> bool:
     k = pool._pick_slot()
     if k is None:
         return False
-    dev = pool.engine.device
-    kk = upload(np.array([k], np.int64), dev)
     with pool._state_lock:
         if int(m["n_recv"]) > pool._t_buf:
             pool._grow_buffers(int(m["n_recv"]))
         sess = _make_session(pool, snap, k, time.perf_counter())
-        state = pool.state
+        sh = pool._shards[pool._shard_of(k)]
+        dev = sh.engine.device
+        kk = upload(np.array([k - sh.lo], np.int64), dev)
+        state = sh.state
         for i, st in enumerate(state.layers):
             for f in _LAYER_FIELDS:
                 row = snap.arrays[f"layer{i}/{f}"].astype(np.float32)
@@ -315,10 +350,10 @@ def restore_session(pool: "SessionPool", snap: SessionSnapshot) -> bool:
             0, kk, upload(np.array([sess.cursor], np.int32), dev))
         if pool.chunk_frames:
             rows = snap.arrays["rows"]
-            row_full = np.zeros((pool._out.shape[1], pool.engine.n_classes),
+            row_full = np.zeros((sh.out.shape[1], pool.engine.n_classes),
                                 np.float32)
             row_full[:rows.shape[0]] = rows
-            pool._out.index_copy_(0, kk, upload(row_full[None], dev))
+            sh.out.index_copy_(0, kk, upload(row_full[None], dev))
     return True
 
 
@@ -343,17 +378,15 @@ def restore_into(pool: "SessionPool", ckpt: PoolCheckpoint) -> None:
             f"capacity is {pool.capacity}")
     t_need = max((int(s.meta["n_recv"]) for s in ckpt.sessions), default=0)
     _check_frames(pool, t_need, "checkpoint session")
-    dev = pool.engine.device
     with pool._state_lock:
         if t_need > pool._t_buf:
             pool._grow_buffers(t_need)
-        targets = list(pool.state.tensors())
-        base = HostCopy(*targets).numpy()
-        out_shape = None if pool._out is None else tuple(pool._out.shape)
+    base, _, _ = _fetch_pool(pool, with_buffers=False)
     host = [np.array(a) for a in base]
     layers, tel, cursor = _split(host, len(pool.engine.layers))
-    out_np = (np.zeros(out_shape, np.float32) if out_shape is not None
-              else None)
+    out_np = (np.zeros((pool.capacity, pool._t_buf + pool.chunk_frames,
+                        pool.engine.n_classes), np.float32)
+              if pool.chunk_frames else None)
 
     now_wall = time.perf_counter()
     for snap in ckpt.sessions:
@@ -374,10 +407,15 @@ def restore_into(pool: "SessionPool", ckpt: PoolCheckpoint) -> None:
             out_np[k, :rows.shape[0]] = rows
 
     with pool._state_lock:
-        for t, arr in zip(pool.state.tensors(), host):
-            t.copy_(upload(arr, dev))
-        if out_np is not None:
-            pool._out.copy_(upload(out_np, dev))
+        for sh in pool._shards:
+            # each shard's block of the assembled arrays, written in place
+            dev = sh.engine.device
+            dims = shardlib.pool_state_slot_dims(sh.state).tensors()
+            for t, arr, d in zip(sh.state.tensors(), host, dims):
+                block = np.take(arr, range(sh.lo, sh.hi), axis=d)
+                t.copy_(upload(block, dev))
+            if out_np is not None:
+                sh.out.copy_(upload(out_np[sh.lo:sh.hi], dev))
     if pool.obs is not None:
         pool.obs.fold_restore(n_sessions=len(ckpt.sessions),
                               seconds=time.perf_counter() - t0)

@@ -40,8 +40,14 @@ rebinding and every cross-thread read holds ``_state_lock`` (the
 ``_guarded_by_`` table below, linted by the reference's
 ``analysis/concurrency.py``).  A dispatch takes the lock only to read
 and to rebind the tensors, not across its launches, so a reader never
-waits for the host side of a chunk.  Slot sharding over several GPUs
-(``n_devices > 1``) is not ported (ROADMAP.md queue 1 item 10).
+waits for the host side of a chunk.
+
+``n_devices=N`` shards the slot dimension (`serving/sharding.py`): the
+pool holds one `_Shard` per contiguous block of slots, its slabs on its
+own device and its chunk dispatched there by the engine's replica on
+that device, with no shard waiting on another's chunk.  Admission picks
+the least-loaded shard.  The devices may be one card N times
+(``launch.mesh.emulated_devices``).
 """
 from __future__ import annotations
 
@@ -55,6 +61,7 @@ import torch
 
 from repro_torch._device import HostCopy, upload
 from repro_torch.analysis import lockorder
+from repro_torch.serving import sharding as shardlib
 from repro_torch.serving import telemetry as tele
 from repro_torch.serving.batched_engine import BatchedSpartusEngine, PoolState
 from repro_torch.serving.engine import tensor_nbytes
@@ -178,23 +185,69 @@ class _Session:
 
 
 @dataclasses.dataclass
+class _Shard:
+    """One contiguous block of pool slots ``[lo, hi)`` and its device
+    slabs; ``engine`` is the engine's replica on the shard's device.
+    Slot ``k`` of the pool is row ``k - lo`` of every slab."""
+
+    lo: int
+    hi: int
+    engine: BatchedSpartusEngine
+    state: PoolState
+    frames: torch.Tensor           # [hi - lo, T_buf, D]
+    lengths: torch.Tensor          # [hi - lo]
+    out: Optional[torch.Tensor]    # [hi - lo, T_buf + C, n_classes]
+
+
+@dataclasses.dataclass
 class _PendingChunk:
-    """Sessions that finished inside a dispatched chunk: their rows were
-    staged to pinned host memory behind that chunk and are resolved at
-    the next boundary (row i of ``rows`` is ``slots[i]``'s)."""
+    """Sessions of one shard that finished inside a dispatched chunk:
+    their rows were staged to pinned host memory behind that chunk and
+    are resolved at the next boundary (row i of ``rows`` is
+    ``sessions[i]``'s)."""
 
     sessions: List[_Session]
-    slots: List[int]
-    rows: HostCopy         # [len(slots), T, n_classes] once waited on
+    rows: HostCopy         # [len(sessions), T, n_classes] once waited on
 
 
 @dataclasses.dataclass
 class _PendingPartials:
-    """One chunk's per-slot logits rows (``engine.snapshot_chunk``),
-    staged behind the chunk and resolved one boundary later."""
+    """One shard's per-slot logits rows of one chunk
+    (``engine.snapshot_chunk``), staged behind the chunk and resolved one
+    boundary later."""
 
-    entries: List[Tuple[_Session, int, int, int]]  # (session, slot, t0, n)
-    rows: HostCopy                                 # [B, C, n_classes]
+    entries: List[Tuple[_Session, int, int, int]]  # (session, row, t0, n)
+    rows: HostCopy                                 # [rows, C, n_classes]
+
+
+class _SummedCopies:
+    """``wait()``: the host sum of the tensors one `HostCopy` staged (the
+    shards' telemetry totals, read by the observability fold)."""
+
+    def __init__(self, copy: HostCopy):
+        self.copy = copy
+
+    def wait(self) -> np.ndarray:
+        host = self.copy.wait()
+        parts = [host] if isinstance(host, torch.Tensor) else host
+        return sum(np.asarray(p, np.float64) for p in parts)
+
+
+def _host_list(copy: HostCopy) -> List[np.ndarray]:
+    """A copy's host arrays as a list, however many it staged."""
+    out = copy.numpy()
+    return out if isinstance(out, list) else [out]
+
+
+def _join_slots(parts: Sequence[np.ndarray], dim: int = 0) -> np.ndarray:
+    """Host blocks of consecutive shards joined back along the slot dim."""
+    return parts[0] if len(parts) == 1 else np.concatenate(parts, axis=dim)
+
+
+def _join_telemetry(host: Sequence[np.ndarray]) -> List[np.ndarray]:
+    """Host ``[nnz, ovf, steps]`` of every shard, in shard order -> the
+    pool's three ``[L, capacity]`` accumulators."""
+    return [_join_slots(host[i::3], dim=1) for i in range(3)]
 
 
 @dataclasses.dataclass
@@ -281,13 +334,6 @@ def _frame_bucket(n: int, floor: int = 64) -> int:
     return b
 
 
-def _check_n_devices(n_devices: Optional[int]) -> None:
-    if n_devices not in (None, 1):
-        raise NotImplementedError(
-            f"n_devices={n_devices}: slot sharding over several GPUs is not "
-            f"ported yet (ROADMAP.md queue 1 item 10); use n_devices=None")
-
-
 class SessionPool:
     """Fixed-capacity pool of device-resident streaming sessions.
 
@@ -298,22 +344,31 @@ class SessionPool:
     utterance longer than ``max_buffer_frames`` (declared at admission or
     reached by appends) is refused with a ValueError; the device frame
     buffers grow in pow2 buckets up to that ceiling.
+
+    ``n_devices=N >= 1`` shards the slot dimension over a 1-D
+    ``("data",)`` mesh of N devices of the engine's type
+    (`serving/sharding.py`): every per-slot slab is split into contiguous
+    blocks, one `_Shard` per device, each chunk dispatched per shard on
+    its own device.  Admission places each session on the least-loaded
+    shard; a capacity not divisible by N falls back to one shard
+    (``n_shards == 1``), correct but not parallel.  ``None`` is one
+    shard on the engine's device.  The API and the results are the
+    same either way: only placement differs.
     """
 
-    # Machine-checked lock discipline (the reference's
-    # analysis/concurrency.py lints every .py under src/).  ``state`` is
-    # updated in place, but `_grow_buffers` rebinds ``_frames`` and
-    # ``_out`` and a checkpoint restore writes ``state``; cross-thread
+    # Machine-checked lock discipline (repro_torch.analysis.concurrency,
+    # and the reference's pass, which lints every .py under src/).  Each
+    # shard's ``state`` is updated in place, but `_grow_buffers` rebinds
+    # its ``frames`` and ``out``, a dispatch rebinds ``state`` and
+    # ``out`` and a checkpoint restore writes ``state``; cross-thread
     # readers (the async server's ``stats()``, the admin endpoint,
-    # snapshots) take the lock, and so do the staged telemetry copy and
-    # its host values, which ``stats()`` reads.  Host bookkeeping
-    # (``_slots``, ``_by_req``, ``_staged``, ``_staged_appends``,
-    # ``_partials``) is tick/driver-thread-only and deliberately absent.
+    # snapshots) take the lock to read ``_shards``, and so do the staged
+    # telemetry copy and its host values, which ``stats()`` reads.  Host
+    # bookkeeping (``_slots``, ``_by_req``, ``_staged``,
+    # ``_staged_appends``, ``_partials``) is tick/driver-thread-only and
+    # deliberately absent; ``_bounds`` and ``_devices`` never change.
     _guarded_by_ = {
-        "state": "_state_lock",
-        "_frames": "_state_lock",
-        "_lengths": "_state_lock",
-        "_out": "_state_lock",
+        "_shards": "_state_lock",
         "_pending": "_state_lock",
         "_pending_partials": "_state_lock",
         "_tele_copy": "_state_lock",
@@ -331,7 +386,6 @@ class SessionPool:
             raise ValueError("capacity must be >= 1")
         if chunk_frames < 0:
             raise ValueError("chunk_frames must be >= 0 (0 = per-frame)")
-        _check_n_devices(n_devices)
         self.engine = engine
         self.capacity = capacity
         self.chunk_frames = chunk_frames
@@ -346,20 +400,32 @@ class SessionPool:
         self._n_devices = n_devices
         # seeded fault-injection hook (serving/faults.py); None = off
         self.faults = faults
-        dev = engine.device
-        self.state: PoolState = engine.init_state(capacity)
+        mesh = shardlib.make_pool_mesh(n_devices, engine.device)
+        self._devices = shardlib.shard_devices(mesh, capacity)
+        self.n_shards = len(self._devices)
+        self._bounds = shardlib.shard_bounds(capacity, self.n_shards)
         self._slots: List[Optional[_Session]] = [None] * capacity
         self._by_req: Dict[int, int] = {}
         self._t_buf = _frame_bucket(max_frames)
-        self._frames = torch.zeros((capacity, self._t_buf, engine.input_dim),
-                                   dtype=torch.float32, device=dev)
-        self._lengths = torch.zeros((capacity,), dtype=torch.int32,
-                                    device=dev)
+        # every slab built whole on the first shard's device, then split
+        # into the shards' blocks (the reference's one device_put)
+        first = engine.on(self._devices[0])
+        states = shardlib.shard_pool_state(first.init_state(capacity), mesh)
+        frames = shardlib.shard_slot_array(torch.zeros(
+            (capacity, self._t_buf, engine.input_dim), dtype=torch.float32,
+            device=first.device), mesh)
+        lengths = shardlib.shard_slot_array(torch.zeros(
+            (capacity,), dtype=torch.int32, device=first.device), mesh)
         # chunked mode: the logits bank, its time axis padded by
         # chunk_frames so a chunk's rows never run off the end
-        self._out: Optional[torch.Tensor] = (
-            engine.init_out_buf(capacity, self._t_buf + chunk_frames)
-            if chunk_frames else None)
+        outs = (shardlib.shard_slot_array(first.init_out_buf(
+            capacity, self._t_buf + chunk_frames), mesh)
+            if chunk_frames else [None] * self.n_shards)
+        self._shards = [
+            _Shard(lo=lo, hi=hi, engine=engine.on(dev), state=st,
+                   frames=fr, lengths=ln, out=out)
+            for (lo, hi), dev, st, fr, ln, out in zip(
+                self._bounds, self._devices, states, frames, lengths, outs)]
         self._pending: List[_PendingChunk] = []
         self._pending_partials: List[_PendingPartials] = []
         self._partials: List[PartialLogits] = []
@@ -397,13 +463,19 @@ class SessionPool:
                 self.obs.fold_fault(site)
             if getattr(exc, "payload", None) == "poison":
                 with self._state_lock:
-                    for t in self.state.tensors():
-                        t.set_()
+                    for sh in self._shards:
+                        for t in sh.state.tensors():
+                            t.set_()
             raise
 
+    def _shard_of(self, k: int) -> int:
+        """The shard holding pool slot ``k``."""
+        return k // (self.capacity // self.n_shards)
+
     def shard_loads(self) -> List[int]:
-        """Occupied-slot count per shard (one shard: the whole pool)."""
-        return [self.n_active]
+        """Occupied-slot count per shard (admission placement telemetry)."""
+        return [sum(s is not None for s in self._slots[lo:hi])
+                for lo, hi in self._bounds]
 
     @property
     def n_active(self) -> int:
@@ -489,9 +561,16 @@ class SessionPool:
         return True
 
     def _pick_slot(self) -> Optional[int]:
-        """The first free slot (one shard)."""
-        return next((k for k, s in enumerate(self._slots) if s is None),
-                    None)
+        """The first free slot on the least-loaded shard (ties toward the
+        lower shard index), so admissions spread evenly across shards;
+        with one shard, the first free slot."""
+        best_k, best_load = None, self.capacity + 1
+        for lo, hi in self._bounds:
+            free = [k for k in range(lo, hi) if self._slots[k] is None]
+            load = hi - lo - len(free)
+            if free and load < best_load:
+                best_k, best_load = free[0], load
+        return best_k
 
     def _live(self, req_id: int) -> _Session:
         if req_id not in self._by_req:
@@ -584,8 +663,10 @@ class SessionPool:
         hi = sess.cursor
         if t0 >= hi:
             return np.zeros((0, self.engine.n_classes), np.float32)
+        k = self._by_req[req_id]
         with self._state_lock:
-            fetch = HostCopy(self._out[self._by_req[req_id], t0:hi])
+            sh = self._shards[self._shard_of(k)]
+            fetch = HostCopy(sh.out[k - sh.lo, t0:hi])
         return fetch.numpy()
 
     def backfill_partials(self, req_id: int, t0: int) -> int:
@@ -603,9 +684,11 @@ class SessionPool:
         if n > 0:
             k = self._by_req[req_id]
             with self._state_lock:
+                sh = self._shards[self._shard_of(k)]
+                j = k - sh.lo
                 self._pending_partials.append(_PendingPartials(
                     entries=[(sess, 0, t0, n)],
-                    rows=HostCopy(self._out[k:k + 1, t0:sess.cursor])))
+                    rows=HostCopy(sh.out[j:j + 1, t0:sess.cursor])))
         sess.partials_paused = False
         return max(n, 0)
 
@@ -626,31 +709,36 @@ class SessionPool:
     # -- device upload staging ----------------------------------------------
 
     def _grow_buffers(self, t_need: int) -> None:
-        """One device-side realloc straight to ``t_need``'s pow2 bucket;
-        resident frames (and banked logits) are copied device to device."""
+        """One device-side realloc of every shard's buffers straight to
+        ``t_need``'s pow2 bucket; resident frames (and banked logits) are
+        copied device to device, each on its shard's device (caller holds
+        ``_state_lock``)."""
         old_t = self._t_buf
         new_t = _frame_bucket(t_need, floor=old_t)
-        grown = self._frames.new_zeros((self.capacity, new_t,
-                                        self.engine.input_dim))
-        grown[:, :old_t] = self._frames
-        self._frames = grown
-        if self._out is not None:
-            out = self._out.new_zeros((self.capacity, new_t + self.chunk_frames,
-                                       self.engine.n_classes))
-            out[:, :old_t + self.chunk_frames] = self._out
-            self._out = out
+        for sh in self._shards:
+            grown = sh.frames.new_zeros((sh.hi - sh.lo, new_t,
+                                         self.engine.input_dim))
+            grown[:, :old_t] = sh.frames
+            sh.frames = grown
+            if sh.out is not None:
+                out = sh.out.new_zeros((sh.hi - sh.lo,
+                                        new_t + self.chunk_frames,
+                                        self.engine.n_classes))
+                out[:, :old_t + self.chunk_frames] = sh.out
+                sh.out = out
         self._t_buf = new_t
         self.n_frame_grows += 1
 
     def _flush_uploads(self) -> None:
         """Write every admission and append staged since the last boundary
-        into the device frame buffer: one host-to-device copy of the new
-        frames and their flat (slot, frame) offsets, one ``index_copy_``,
-        and the slots' new lengths.  An admission writes frames
-        ``[0, n)`` of its slot; an append ``[start, start + n)``, where
-        start is the frames received before it — positions are exact, so
-        nothing clamps into earlier frames.  A buffer too short for the
-        wave grows first, straight to the bucket it needs."""
+        into the device frame buffers: per shard with staged rows, one
+        host-to-device copy of its new frames and their flat (row, frame)
+        offsets, one ``index_copy_``, and its slots' new lengths.  An
+        admission writes frames ``[0, n)`` of its slot; an append
+        ``[start, start + n)``, where start is the frames received before
+        it — positions are exact, so nothing clamps into earlier frames.
+        Buffers too short for the wave grow first, straight to the bucket
+        it needs."""
         self._fire("admission_upload")
         blocks = ([(k, 0, f) for k, f in self._staged]
                   + self._staged_appends)
@@ -660,21 +748,28 @@ class SessionPool:
         for k, start, feats in blocks:
             lengths[k] = start + int(feats.shape[0])
         t_need = max(lengths.values())
-        rows = [f for _, _, f in blocks if f.shape[0]]
         with self._state_lock:
             if t_need > self._t_buf:
                 self._grow_buffers(t_need)
-            dev = self.engine.device
-            if rows:
-                t_buf = self._t_buf
-                flat = np.concatenate([
-                    k * t_buf + start + np.arange(f.shape[0], dtype=np.int64)
-                    for k, start, f in blocks if f.shape[0]])
-                self._frames.view(-1, self.engine.input_dim).index_copy_(
-                    0, upload(flat, dev), upload(np.concatenate(rows), dev))
-            slots = np.fromiter(lengths.keys(), np.int64, len(lengths))
-            ts = np.fromiter(lengths.values(), np.int32, len(lengths))
-            self._lengths.index_copy_(0, upload(slots, dev), upload(ts, dev))
+            t_buf = self._t_buf
+            for sh in self._shards:
+                mine = [(k - sh.lo, start, f) for k, start, f in blocks
+                        if sh.lo <= k < sh.hi and f.shape[0]]
+                dev = sh.engine.device
+                if mine:
+                    flat = np.concatenate([
+                        j * t_buf + start + np.arange(f.shape[0],
+                                                      dtype=np.int64)
+                        for j, start, f in mine])
+                    rows = np.concatenate([f for _, _, f in mine])
+                    sh.frames.view(-1, self.engine.input_dim).index_copy_(
+                        0, upload(flat, dev), upload(rows, dev))
+                ks = [k for k in lengths if sh.lo <= k < sh.hi]
+                if ks:
+                    slots = np.array(ks, np.int64) - sh.lo
+                    ts = np.array([lengths[k] for k in ks], np.int32)
+                    sh.lengths.index_copy_(0, upload(slots, dev),
+                                           upload(ts, dev))
         self._staged.clear()
         self._staged_appends.clear()
 
@@ -715,17 +810,19 @@ class SessionPool:
         self._fire("dispatch")
         t0 = time.perf_counter()
         with self._state_lock:
-            state, frames = self.state, self._frames
+            shards = [(sh.engine, sh.lo, sh.hi, sh.state, sh.frames)
+                      for sh in self._shards]
         with self._tracer.span("dispatch"):
-            state, logits = self.engine.step_frames(state, frames, active,
-                                                    reset)
+            logits = [eng.step_frames(state, frames, active[lo:hi],
+                                      reset[lo:hi])[1]
+                      for eng, lo, hi, state, frames in shards]
         with self._state_lock:
-            self.state = state
-            self._tele_copy = HostCopy(*state.telemetry)
+            self._tele_copy = self._stage_telemetry()
         self.n_dispatches += 1
         t_dispatched = time.perf_counter()
         with self._tracer.span("snapshot_fetch"):
-            logits_np = HostCopy(logits).numpy()   # one fetch per tick
+            # one fetch per tick
+            logits_np = _join_slots(_host_list(HostCopy(*logits)))
             self._resolve_telemetry()              # landed before logits
         finished: List[RequestResult] = []
         for k, sess in enumerate(self._slots):
@@ -796,21 +893,23 @@ class SessionPool:
         self._fire("dispatch")
         t0 = time.perf_counter()
         with self._state_lock:
-            state, frames, lengths, out = (self.state, self._frames,
-                                           self._lengths, self._out)
+            shards = list(self._shards)
+            args = [(sh.state, sh.frames, sh.lengths, active[sh.lo:sh.hi],
+                     reset[sh.lo:sh.hi], sh.out) for sh in shards]
         with self._tracer.span("dispatch"):
-            state, out = self.engine.step_chunk(
-                state, frames, lengths, active, reset, out, n_frames=n)
+            states, outs = shardlib.dispatch_chunk(
+                *zip(*args), engines=[sh.engine for sh in shards],
+                n_frames=n)
         with self._state_lock:
-            self.state, self._out = state, out
-            tele_copy = HostCopy(*state.telemetry)
+            for sh, state, out in zip(shards, states, outs):
+                sh.state, sh.out = state, out
+            tele_copy = self._stage_telemetry()
         self.n_dispatches += 1
         t_dispatched = time.perf_counter()
 
         # ---- everything below overlaps the in-flight device chunk ----
-        retiring: List[_Session] = []
-        slots: List[int] = []
-        partial_entries: List[Tuple[_Session, int, int, int]] = []
+        retiring: List[int] = []
+        partial_slots: List[int] = []
         frames_this = 0
         for k, sess in enumerate(self._slots):
             if sess is None:
@@ -823,22 +922,26 @@ class SessionPool:
             sess.cursor += adv
             sess.last_step = now + adv - 1
             if self.stream_partials and not sess.partials_paused:
-                partial_entries.append((sess, k, int(starts[k]), adv))
+                partial_slots.append(k)
             if sess.done:
-                retiring.append(sess)
-                slots.append(k)
-                self._free(k)
+                retiring.append(k)
         newly: List[_PendingChunk] = []
         newly_partials: List[_PendingPartials] = []
-        if retiring or partial_entries:
+        if retiring or partial_slots:
             with self._state_lock:
-                if retiring:
-                    newly.append(self._snapshot_retirees(retiring, slots))
-                if partial_entries:
-                    newly_partials.append(_PendingPartials(
-                        entries=partial_entries,
-                        rows=self.engine.snapshot_chunk(self._out, starts,
-                                                        n_frames=n)))
+                newly = self._snapshot_retirees(retiring)
+                for sh in self._shards:
+                    entries = [
+                        (self._slots[k], k - sh.lo, int(starts[k]),
+                         self._slots[k].cursor - int(starts[k]))
+                        for k in partial_slots if sh.lo <= k < sh.hi]
+                    if entries:
+                        newly_partials.append(_PendingPartials(
+                            entries=entries,
+                            rows=sh.engine.snapshot_chunk(
+                                sh.out, starts[sh.lo:sh.hi], n_frames=n)))
+            for k in retiring:
+                self._free(k)
         with self._tracer.span("snapshot_fetch"):
             finished = self._resolve()       # the PREVIOUS chunk's copies
         t_end = time.perf_counter()
@@ -859,31 +962,35 @@ class SessionPool:
                 overlap=overlap, retirements=len(finished))
         return finished
 
-    def _snapshot_retirees(self, sessions: List[_Session],
-                           slots: List[int]) -> _PendingChunk:
-        """Stage the retiring slots' banked rows to the host behind the
-        chunk that wrote them (caller holds ``_state_lock``)."""
-        n_rows = max(1, max(s.cursor for s in sessions))
-        return _PendingChunk(
-            sessions=sessions, slots=slots,
-            rows=self.engine.snapshot_out(self._out, slots, n_rows=n_rows))
+    def _snapshot_retirees(self, slots: List[int]) -> List[_PendingChunk]:
+        """Stage the retiring ``slots``' banked rows to the host behind the
+        chunk that wrote them, one fetch per shard that holds any (caller
+        holds ``_state_lock``; the slots are still bound)."""
+        pend = []
+        for sh in self._shards:
+            mine = [k for k in slots if sh.lo <= k < sh.hi]
+            if not mine:
+                continue
+            sessions = [self._slots[k] for k in mine]
+            n_rows = max(1, max(s.cursor for s in sessions))
+            pend.append(_PendingChunk(
+                sessions=sessions,
+                rows=sh.engine.snapshot_out(
+                    sh.out, [k - sh.lo for k in mine], n_rows=n_rows)))
+        return pend
 
     def _queue_done_retirements(self) -> None:
         """Retire sessions that are already done WITHOUT another dispatch
         (a stream finished after its last received frame was consumed, or
         with zero frames): stage their banked rows now; the results
         surface at the next resolve like any other retirement."""
-        retiring: List[_Session] = []
-        slots: List[int] = []
-        for k, sess in enumerate(self._slots):
-            if sess is not None and sess.done:
-                retiring.append(sess)
-                slots.append(k)
-                self._free(k)
-        if retiring:
+        slots = [k for k, sess in enumerate(self._slots)
+                 if sess is not None and sess.done]
+        if slots:
             with self._state_lock:
-                self._pending.append(self._snapshot_retirees(retiring,
-                                                             slots))
+                self._pending.extend(self._snapshot_retirees(slots))
+            for k in slots:
+                self._free(k)
 
     def flush(self) -> List[RequestResult]:
         """Resolve retirements (and streamed partials) still pending from
@@ -932,6 +1039,12 @@ class SessionPool:
         self._resolve_partials()
         return self._resolve_pending()
 
+    def _stage_telemetry(self) -> HostCopy:
+        """Every shard's telemetry accumulators, staged to the host behind
+        the chunk just dispatched (caller holds ``_state_lock``)."""
+        return HostCopy(*(t for sh in self._shards
+                          for t in sh.state.telemetry))
+
     def _resolve_telemetry(self) -> None:
         """Wait for the telemetry copy staged behind the previous
         dispatch and keep its host values (what `staged_sparsity`
@@ -939,7 +1052,7 @@ class SessionPool:
         with self._state_lock:
             copy, self._tele_copy = self._tele_copy, None
         if copy is not None:
-            host = copy.numpy()                # waits on its own event
+            host = copy.numpy()                # waits on its own events
             with self._state_lock:
                 self._tele_host = host
 
@@ -978,8 +1091,7 @@ class SessionPool:
         host values only, plus the telemetry totals staged to the host
         behind this chunk, which the NEXT boundary's fold resolves."""
         adm, self._adm_since_fold = self._adm_since_fold, 0
-        with self._state_lock:
-            totals = HostCopy(self.engine.telemetry_totals(self.state))
+        totals = _SummedCopies(HostCopy(*self.telemetry_totals()))
         self.obs.fold_chunk(
             occupancy=self.n_active,
             capacity=self.capacity,
@@ -993,6 +1105,13 @@ class SessionPool:
             shard_loads=self.shard_loads(),
             telemetry_totals=totals,
         )
+
+    def synchronize(self) -> None:
+        """Wait for every shard's device to finish its queued work (a
+        no-op on the host)."""
+        for i, dev in enumerate(self._devices):
+            if dev.type == "cuda" and dev not in self._devices[:i]:
+                torch.cuda.synchronize(dev)
 
     def mean_host_overlap_frac(self) -> float:
         return (float(np.mean(self._overlap_fracs)) if self._overlap_fracs
@@ -1010,8 +1129,8 @@ class SessionPool:
         bank = None
         if self.chunk_frames and self.n_active:
             with self._state_lock:
-                bank = HostCopy(self._out)
-            bank = bank.numpy()
+                bank = HostCopy(*(sh.out for sh in self._shards))
+            bank = _join_slots(_host_list(bank))
         drained: List[RequestResult] = []
         for k, sess in enumerate(self._slots):
             if sess is None:
@@ -1029,10 +1148,22 @@ class SessionPool:
         return out + drained
 
     def measured_sparsity(self) -> Dict[str, float]:
+        """The telemetry summed over every slot of every shard (one host
+        fetch of each shard's accumulators)."""
         # the lock keeps a restore on another thread from writing the
         # state mid-fetch; the fetch itself follows the in-flight chunk
         with self._state_lock:
-            return self.engine.measured_sparsity(self.state)
+            host = [t.detach().cpu().numpy() for sh in self._shards
+                    for t in sh.state.telemetry]
+        return tele.summarize(*_join_telemetry(host),
+                              self.engine.n_cols)
+
+    def telemetry_totals(self) -> List[torch.Tensor]:
+        """Each shard's ``[3]`` running totals, reduced on its device (no
+        host sync); the pool's totals are their sum."""
+        with self._state_lock:
+            return [sh.engine.telemetry_totals(sh.state)
+                    for sh in self._shards]
 
     def staged_sparsity(self) -> Dict[str, float]:
         """`measured_sparsity` as of the newest dispatch whose telemetry
@@ -1049,19 +1180,25 @@ class SessionPool:
             host = self._tele_host
         if host is None:
             return tele.summarize(np.zeros(1), np.zeros(1), np.zeros(1), [1])
-        return tele.summarize(*host, self.engine.n_cols)
+        return tele.summarize(*_join_telemetry(host),
+                              self.engine.n_cols)
 
     def bytes_per_slot(self) -> float:
         """Device bytes held per resident session: its share of the state
         slabs, frame buffer, logits bank and the shared packed weights.
         Shape arithmetic only; folds the ``spartus_slot_bytes`` gauge when
-        observability is attached."""
+        observability is attached.  The weights count once per device
+        that holds a replica."""
         with self._state_lock:
-            total = sum(tensor_nbytes(t) for t in self.state.tensors())
-            total += tensor_nbytes(self._frames) + tensor_nbytes(self._lengths)
-            if self._out is not None:
-                total += tensor_nbytes(self._out)
-        total += self.engine.weight_bytes()
+            total = 0
+            for sh in self._shards:
+                total += sum(tensor_nbytes(t) for t in sh.state.tensors())
+                total += (tensor_nbytes(sh.frames)
+                          + tensor_nbytes(sh.lengths))
+                if sh.out is not None:
+                    total += tensor_nbytes(sh.out)
+            replicas = {id(sh.engine): sh.engine for sh in self._shards}
+        total += sum(e.weight_bytes() for e in replicas.values())
         per_slot = total / self.capacity
         if self.obs is not None:
             self.obs.fold_slot_bytes(per_slot)
@@ -1150,12 +1287,12 @@ def serve_requests(
     Admission is FIFO in arrival order; a request that finds the pool full
     waits.  ``chunk_frames=C >= 1`` selects the chunked tick loop, 0 the
     per-frame loop.  If ``max_steps`` stops the run early, in-flight
-    sessions are drained into ``truncated`` results.  ``n_devices`` may
-    be None or 1 (slot sharding is not ported).  ``observability`` folds
-    every dispatch boundary into a `PoolObservability`; results are the
-    same with it on or off.  Returns per-request results sorted by
-    ``req_id`` and aggregate stats."""
-    _check_n_devices(n_devices)
+    sessions are drained into ``truncated`` results.  ``n_devices=N``
+    shards the pool's slot dimension over N devices
+    (`SessionPool(n_devices=...)`): same API, same results.
+    ``observability`` folds every dispatch boundary into a
+    `PoolObservability`; results are the same with it on or off.  Returns
+    per-request results sorted by ``req_id`` and aggregate stats."""
     pending = deque(_normalize(requests))
     n_requests = len(pending)
     max_frames = max((r.n_frames for r in pending), default=1)
@@ -1194,8 +1331,7 @@ def serve_requests(
             results.extend(pool.drain(now - 1))
             break
 
-    if engine.device.type == "cuda":
-        torch.cuda.synchronize(engine.device)
+    pool.synchronize()
     wall = time.perf_counter() - t0
     if observability is not None:
         observability.flush_totals()

@@ -21,6 +21,7 @@ from repro.models import lstm_am as jam
 from repro.serving import AsyncSpartusServer as JAsyncServer
 from repro.serving import BatchedSpartusEngine as JBatched
 from repro.serving import EngineConfig as JConfig
+from repro_torch.launch.mesh import emulated_devices
 from repro_torch.models import lstm_am as tam
 from repro_torch.serving import (
     AsyncSpartusServer,
@@ -497,10 +498,25 @@ def test_async_wall_clock_pacing(engines, workload):
     assert wall >= 0.06
 
 
-def test_async_rejects_multi_gpu_sharding(engines):
+def test_async_rejects_multi_gpu_sharding(engines, workload):
+    """More shards than visible devices raises the overcommit error; on
+    two emulated devices the server streams the oracle logits."""
     _, eb = engines
-    with pytest.raises(NotImplementedError, match="item 10"):
+    feats, refs = workload
+    with pytest.raises(ValueError, match="visible"):
         AsyncSpartusServer(eb, capacity=2, chunk_frames=4, n_devices=2)
+
+    async def run():
+        async with AsyncSpartusServer(eb, capacity=4, chunk_frames=4,
+                                      max_frames=16, offload_ticks=False,
+                                      n_devices=2) as srv:
+            assert srv.pool.n_shards == 2
+            return await asyncio.gather(*[srv.submit(f) for f in feats])
+
+    with emulated_devices(2):
+        results = asyncio.run(run())
+    for r, ref in zip(results, refs):
+        np.testing.assert_allclose(r.logits, ref, atol=TOL)
 
 
 # -- both packages on one workload -------------------------------------------

@@ -25,6 +25,7 @@ from repro.serving import EngineConfig as JConfig
 from repro.serving import checkpoint as jckpt
 from repro.serving.scheduler import SessionPool as JPool
 from repro_torch.core import QuantConfig
+from repro_torch.launch.mesh import emulated_devices
 from repro_torch.models import lstm_am as tam
 from repro_torch.serving import (
     AsyncSpartusServer,
@@ -197,6 +198,50 @@ def test_single_session_snapshot_migrates(eb, feats, uninterrupted):
     assert np.array_equal(got[104], ref[104])
 
 
+@pytest.mark.parametrize("src_dev,dst_dev,dst_cap", [
+    (None, 4, 4), (4, None, 4), (4, 2, 4), (2, 4, 8)])
+def test_restore_across_shard_counts(eb, feats, uninterrupted, tmp_path,
+                                     src_dev, dst_dev, dst_cap):
+    """The migration primitive across shard counts (logical shards on the
+    host): a checkpoint written at one shard count restores at another,
+    at the same capacity or a migrated one.  Every array the restored
+    pool holds equals the file bit for bit.  Each shard's chunk is the
+    unsharded chunk at the shard's batch, so every session finishes with
+    exactly the uninterrupted pool's logits while every shard holds >= 2
+    slots; at 1 slot a shard's fp32 GEMMs take the host BLAS's
+    matrix-vector path, whose sums differ in the last bits (about 1e-7
+    here), and the bar is the reference's own for this test, 1e-5."""
+    with emulated_devices(4):
+        pool = SessionPool(eb, 4, max_frames=16, chunk_frames=4,
+                           n_devices=src_dev)
+        dst = SessionPool(eb, dst_cap, max_frames=16, chunk_frames=4,
+                          n_devices=dst_dev)
+    assert (pool.n_shards, dst.n_shards) == (src_dev or 1, dst_dev or 1)
+    pending = deque(_reqs(feats[:4]))
+    while pending and pool.n_free and pool.admit(pending[0], 0):
+        pending.popleft()
+    got = {r.req_id: r.logits for r in pool.tick(0)[0]}
+    for r in pool.checkpoint(str(tmp_path / "mig")):
+        got[r.req_id] = r.logits
+    dst.restore(str(tmp_path / "mig"))
+    saved = {s.req_id: s for s in
+             ckptlib.load_checkpoint(str(tmp_path / "mig")).sessions}
+    restored = ckptlib.snapshot_pool(dst).sessions
+    assert sorted(s.req_id for s in restored) == sorted(saved)
+    for snap in restored:
+        ref_snap = saved[snap.req_id]
+        assert snap.meta == ref_snap.meta
+        for key, arr in ref_snap.arrays.items():
+            assert np.array_equal(snap.arrays[key], arr), key
+    if dst.n_shards > 1:       # admission spread the sessions evenly
+        assert max(dst.shard_loads()) - min(dst.shard_loads()) <= 1
+    got = _drain(dst, [], now=4, collected=got)
+    ref = uninterrupted(4, 4)
+    bar = 0.0 if min(4 // pool.n_shards, dst_cap // dst.n_shards) > 1 else TOL
+    for i in range(4):
+        assert np.abs(got[100 + i] - ref[100 + i]).max() <= bar, i
+
+
 @pytest.mark.parametrize("chunk", [4, 0])
 def test_snapshot_arrays_match_reference(model, feats, chunk):
     """The same schedule through both packages, snapshotted at the same
@@ -349,6 +394,26 @@ def test_watchdog_recovers_bit_identical(eb, feats, ats):
     for a, b in zip(clean, res):
         assert np.array_equal(a.logits, b.logits), a.req_id
     assert obs.c_recoveries.value == len(ats)
+    assert obs.c_salvaged.value > 0 and obs.c_lost.value == 0
+
+
+def test_watchdog_recovers_a_sharded_pool_bit_identical(eb, feats):
+    """The reference's ``((2,), 4)`` case: the watchdog rebuilds a pool of
+    4 logical shards from the same kwargs after a dispatch crash, and
+    every session finishes with exactly the fault-free logits of the
+    same sharded pool, and within 1e-5 of the unsharded pool's (one
+    slot a shard: see test_restore_across_shard_counts)."""
+    unsharded, _ = _async_submit_all(eb, feats)
+    inj = FaultInjector(FaultPlan(events=(FaultEvent("dispatch", 2),)))
+    obs = PoolObservability()
+    with emulated_devices(4):
+        clean, _ = _async_submit_all(eb, feats, n_devices=4)
+        res, n_rec = _async_submit_all(eb, feats, watchdog=True, faults=inj,
+                                       observability=obs, n_devices=4)
+    assert n_rec == 1 and obs.c_recoveries.value == 1
+    for a, b, u in zip(clean, res, unsharded):
+        assert np.array_equal(a.logits, b.logits), a.req_id
+        assert np.abs(b.logits - u.logits).max() <= TOL, a.req_id
     assert obs.c_salvaged.value > 0 and obs.c_lost.value == 0
 
 

@@ -41,7 +41,7 @@ def test_cases_are_the_references_unsharded_cases():
     want = [(c.name, c.contract, dict(c.op_budget_override))
             for c in jcases.build_cases(include_sharded=False)]
     got = [(c.name, c.contract, dict(c.op_budget_override))
-           for c in cases.build_cases(device="cpu")]
+           for c in cases.build_cases(device="cpu", include_sharded=False)]
     assert got == want
     assert [n for n, _, _ in got] == CASE_NAMES
 
@@ -59,6 +59,107 @@ def test_port_case_passes(name):
         kernel = ("kernel:stsp_spmv_scatter_batch" if name.endswith("scatter")
                   else "kernel:dense_mirror")
         assert report.op_histogram[kernel] == 8     # 4 frames x 2 layers
+
+
+def test_cases_with_the_sharded_case_are_the_references():
+    from repro.analysis import cases as jcases
+
+    want = [(c.name, c.contract, dict(c.op_budget_override))
+            for c in jcases.build_cases(include_sharded=True)]
+    got = [(c.name, c.contract, dict(c.op_budget_override))
+           for c in cases.build_cases(device="cpu")]
+    assert got == want
+    assert got[-1][0] == "step_chunk/sharded-4dev"
+
+
+def _sharded_case():
+    return {c.name: c for c in cases.build_cases(device="cpu")}[
+        "step_chunk/sharded-4dev"]
+
+
+def test_sharded_case_passes():
+    """8 slots over 4 logical shards: every clause of ``step_chunk``
+    over the whole chunk, each shard's part the unsharded chunk at 2
+    slots, and no op touching two shards' tensors."""
+    case = _sharded_case()
+    built = case.build()
+    report = contracts.check_built(case, built)
+    assert report.ok, [str(v) for v in report.violations]
+    assert report.alias_entries == report.donated_leaves > 0
+    assert len(built.shards) == 4
+    assert not any(a & b for i, a in enumerate(built.shards)
+                   for b in built.shards[i + 1:])
+    assert report.op_histogram["kernel:dense_mirror"] == 4 * 8
+    assert report.op_histogram["dynamic-update-slice"] == 4
+    for op, n in built.shard_histogram.items():
+        assert report.op_histogram[op] == 4 * n, op
+
+
+def test_sharded_case_catches_a_copy_between_shards():
+    """A chunk that reads one shard's frames into another's fails
+    ``cross_shard``; one that skips a shard's layer fails
+    ``shard_histogram``."""
+    case = _sharded_case()
+    built = case.build()
+
+    class Leaky:
+        """Shard 0's engine, reading shard 1's frames into its own."""
+
+        def __init__(self, engine, src):
+            self.engine, self.src = engine, src
+
+        def step_chunk(self, state, frames, *args, **kwargs):
+            frames.copy_(self.src)
+            return self.engine.step_chunk(state, frames, *args, **kwargs)
+
+    engines = list(built.kwargs["engines"])
+    engines[0] = Leaky(engines[0], built.args[1][1])
+    built.kwargs["engines"] = tuple(engines)
+    report = contracts.check_built(case, built)
+    crossing = [v for v in report.violations if v.clause == "cross_shard"]
+    assert len(crossing) == 1 and "shard 0:" in crossing[0].message
+    # the extra copy also shows in shard 0's histogram
+    assert {v.clause for v in report.violations} == {"cross_shard",
+                                                     "shard_histogram"}
+
+    built = case.build()
+    built.shard_histogram = {**built.shard_histogram,
+                             "kernel:delta_encode": 0}
+    report = contracts.check_built(case, built)
+    assert {v.clause for v in report.violations} == {"shard_histogram"}
+
+
+def test_sharded_case_traces_the_pools_own_dispatch(monkeypatch):
+    """The sharded case traces ``sharding.dispatch_chunk``, the function a
+    sharded ``SessionPool.step_chunk`` dispatches its shards with, so a
+    change to the pool's per-shard loop is a change to what the contract
+    checks."""
+    import numpy as np
+
+    from repro_torch.launch.mesh import emulated_devices
+    from repro_torch.serving import sharding
+    from repro_torch.serving.scheduler import SessionPool, StreamRequest
+
+    assert _sharded_case().build().fn is sharding.dispatch_chunk
+    calls = []
+    real = sharding.dispatch_chunk
+
+    def spy(*args, **kwargs):
+        calls.append(len(kwargs["engines"]))
+        return real(*args, **kwargs)
+
+    monkeypatch.setattr(sharding, "dispatch_chunk", spy)
+    width = cases.WIDTHS["test"]
+    with emulated_devices(4):
+        pool = SessionPool(cases._engine(width, torch.device("cpu")),
+                           capacity=8, max_frames=width.max_frames,
+                           chunk_frames=width.chunk, n_devices=4)
+    rng = np.random.default_rng(0)
+    for i in range(8):
+        pool.admit(StreamRequest(i, 0, rng.standard_normal(
+            (5, width.input_dim)).astype(np.float32)), 0)
+    pool.step_chunk(0)
+    assert calls == [4]
 
 
 SERVED_NAMES = [

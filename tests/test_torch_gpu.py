@@ -366,6 +366,102 @@ def test_pool_on_card_matches_host_pool_and_batch1(cuda, route, quant):
             a.logits, batch1.run_utterance(feats).cpu().numpy(), atol=1e-5)
 
 
+def _shard_model(device, route):
+    cfg = lstm_am.LSTMAMConfig(input_dim=20, hidden_dim=64, n_layers=2,
+                               n_classes=11)
+    params = lstm_am.cbtd_prune_stacks(
+        lstm_am.init_params(_gen(0), cfg, device="cpu"), gamma=0.75, m=8)
+    return BatchedSpartusEngine(params, cfg, EngineConfig(
+        theta=0.05, gamma=0.75, m=8, spmv_path=route), device=device)
+
+
+def _shard_requests():
+    rng = np.random.default_rng(3)
+    return [(i % 3, rng.standard_normal((t, 20)).astype(np.float32))
+            for i, t in enumerate([9, 6, 12, 7, 15, 3, 10, 8, 5, 11])]
+
+
+@pytest.mark.parametrize("route", ["scatter", "dense"])
+def test_sharded_pool_on_card_matches_host_and_unsharded(cuda, route):
+    """4 logical shards of 2 slots on the card: within 1e-5 of the same
+    sharded pool on the host and of the unsharded pool on the card (the
+    head's fp32 GEMM may pick another cuBLAS kernel at the shard's
+    batch), and their boundaries make no blocking copy or synchronize."""
+    from repro_torch.launch.mesh import emulated_devices
+
+    from repro_torch.serving import SessionPool, StreamRequest
+
+    reqs = _shard_requests()
+    card = _shard_model(cuda, route)
+    base, _ = serve_requests(card, reqs, 8, chunk_frames=4)
+    with emulated_devices(4):
+        host, _ = serve_requests(_shard_model("cpu", route), reqs, 8,
+                                 chunk_frames=4, n_devices=4)
+        pool = SessionPool(card, 8, max_frames=16, chunk_frames=4,
+                           n_devices=4)
+    serve_requests(card, reqs[:4], 8, chunk_frames=4)      # warm-up
+    pending = sorted((StreamRequest(i, a, f)
+                      for i, (a, f) in enumerate(reqs)),
+                     key=lambda r: (r.arrival_step, r.req_id))
+    got, now = {}, 0
+    torch.cuda.synchronize()
+    with _NoSync():
+        while pending or pool.n_active or pool.has_pending:
+            while pending and pending[0].arrival_step <= now and pool.n_free:
+                assert pool.admit(pending.pop(0), now)
+            fin, adv = pool.tick(now)
+            got.update({r.req_id: r.logits for r in fin})
+            now += max(adv, 1)
+    assert pool.n_shards == 4
+    for b, c in zip(host, base):
+        np.testing.assert_allclose(got[b.req_id], b.logits, atol=1e-5)
+        np.testing.assert_allclose(got[b.req_id], c.logits, atol=1e-5)
+    assert pool.measured_sparsity()["temporal_sparsity"] > 0
+
+
+@pytest.mark.parametrize("route", ["scatter", "dense"])
+def test_sharded_pool_on_distinct_cards(cuda, route):
+    """With two cards, a 2-shard pool of an engine on ``cuda`` (the
+    current card) places one shard on each, with the engine's weights
+    copied to the second once, serves the unsharded pool's logits within
+    1e-5, and leaves the current card as it was: a kernel launched on the
+    second card gives the caller's current device back."""
+    if torch.cuda.device_count() < 2:
+        pytest.skip("needs two NVIDIA GPUs")
+    from repro_torch.serving import SessionPool
+
+    reqs = _shard_requests()
+    card = _shard_model(cuda, route)
+    pool = SessionPool(card, 4, chunk_frames=4, n_devices=2)
+    assert pool._devices == [torch.device("cuda", 0),
+                             torch.device("cuda", 1)]
+    assert pool._shards[0].engine is card and len(card._replicas) == 1
+    assert pool._shards[1].engine.device == torch.device("cuda", 1)
+    assert pool._shards[1].state.cursor.device == torch.device("cuda", 1)
+    x = torch.randn((4, 64), device="cuda:1")
+    de.delta_encode(x, torch.zeros_like(x), 0.3)
+    assert torch.cuda.current_device() == 0
+    base, _ = serve_requests(card, reqs, 4, chunk_frames=4)
+    sharded, _ = serve_requests(card, reqs, 4, chunk_frames=4, n_devices=2)
+    assert torch.cuda.current_device() == 0
+    for a, b in zip(sharded, base):
+        np.testing.assert_allclose(a.logits, b.logits, atol=1e-5)
+
+
+def test_cuda_resolves_to_the_current_card(cuda):
+    """An unindexed ``cuda`` resolves once, to ``cuda:<current>``: an
+    engine built on it carries its index, and ``engine.on`` of either
+    spelling is the engine itself (device identity is ``==``)."""
+    from repro_torch._device import resolve_device
+
+    here = torch.device("cuda", torch.cuda.current_device())
+    assert resolve_device(None) == resolve_device("cuda") == here
+    card = _shard_model(cuda, "scatter")
+    assert card.device == here
+    assert card.on("cuda") is card and card.on(here) is card
+    assert not card._replicas
+
+
 def test_engine_refuses_tf32_head(cuda):
     cfg = lstm_am.LSTMAMConfig(input_dim=20, hidden_dim=64, n_layers=2,
                                n_classes=11)
@@ -493,7 +589,7 @@ def test_pool_boundaries_on_card_never_sync(cuda, route):
                 got = sum(p.rows.shape[0] for p in parts if p.req_id == 1)
                 backfilled = pool.backfill_partials(1, got)
             pool.staged_sparsity()
-            engine.telemetry_totals(pool.state)
+            pool.telemetry_totals()
         parts += pool.take_partials()
     assert backfilled > 4
     assert pool.staged_sparsity() == pool.measured_sparsity()

@@ -28,6 +28,7 @@ from repro.serving import BatchedSpartusEngine as JBatched
 from repro.serving import EngineConfig as JConfig
 from repro.serving import PoolObservability as JObs
 from repro_torch.launch import serve as tlaunch
+from repro_torch.launch.mesh import emulated_devices
 from repro_torch.models import lstm_am as tam
 from repro_torch.serving import AsyncSpartusServer as TServer
 from repro_torch.serving import BatchedSpartusEngine as TBatched
@@ -265,15 +266,35 @@ def test_launcher_end_to_end_on_cpu():
     assert "dispatch economy" in proc.stdout
 
 
-@pytest.mark.parametrize("args,item", [(["--spartus", "--devices", "2"],
-                                        "item 10"),
-                                       (["--devices", "4"], "item 10"),
-                                       (["--async"], "--async requires")])
-def test_unported_modes_exit_with_their_roadmap_item(capsys, args, item):
+@pytest.mark.parametrize("args,message", [
+    (["--spartus", "--async", "--device", "cpu", "--pool", "4",
+      "--devices", "2"], "serve: --devices 2: requested a 2-device mesh"),
+    (["--spartus", "--device", "cpu", "--pool", "4", "--devices", "4"],
+     "serve: --devices 4: requested a 4-device mesh"),
+    (["--async"], "--async requires")])
+def test_unported_modes_exit_with_their_roadmap_item(capsys, args, message):
+    """Modes the launcher refuses: more ``--devices`` than are visible
+    exit with the overcommit error as the exit message, and ``--async``
+    without ``--spartus`` with a usage error (exit code 2)."""
     with pytest.raises(SystemExit) as ei:
         tlaunch.main(args)
-    assert ei.value.code == 2
-    assert item in capsys.readouterr().err
+    if ei.value.code == 2:
+        assert message in capsys.readouterr().err
+    else:
+        assert str(ei.value.code).startswith(message)
+        assert "visible" in str(ei.value.code)
+
+
+def test_devices_shards_the_async_pool(capsys):
+    """``--devices 2`` over two emulated host devices: the pool runs two
+    shards and every client is served."""
+    with emulated_devices(2):
+        tlaunch.main(["--spartus", "--async", "--device", "cpu", "--hidden",
+                      "32", "--pool", "4", "--clients", "3",
+                      "--chunk-frames", "8", "--devices", "2"])
+    out = capsys.readouterr().out
+    assert "over 2 device(s): 2 shard(s)" in out
+    assert "3 concurrent TCP clients served" in out
 
 
 @pytest.mark.parametrize("arch", ["qwen2-0.5b", "pixtral-12b"])

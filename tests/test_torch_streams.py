@@ -23,6 +23,7 @@ from repro.serving import BatchedSpartusEngine as JBatched
 from repro.serving import EngineConfig as JConfig
 from repro.serving.scheduler import SessionPool as JPool
 from repro_torch._device import HostCopy
+from repro_torch.launch.mesh import emulated_devices
 from repro_torch.models import lstm_am as tam
 from repro_torch.serving import BatchedSpartusEngine as TBatched
 from repro_torch.serving import EngineConfig as TConfig
@@ -256,14 +257,25 @@ def test_max_buffer_frames_refusal(model):
 
 
 def test_multi_gpu_sharding_raises(model):
+    """More shards than visible devices raises the overcommit error;
+    with two (emulated) devices the pool shards and serves the
+    unsharded pool's logits bit for bit."""
     _, teb = _engines(model, "auto")
-    with pytest.raises(NotImplementedError, match="item 10"):
+    reqs = [StreamRequest(i, 0, _feats(i, 3 + 2 * i)) for i in range(3)]
+    with pytest.raises(ValueError, match="visible"):
         TPool(teb, 4, chunk_frames=4, n_devices=2)
-    with pytest.raises(NotImplementedError, match="item 10"):
-        tserve(teb, [StreamRequest(0, 0, _feats(0, 3))], 2, n_devices=2)
-    res, _ = tserve(teb, [StreamRequest(0, 0, _feats(0, 3))], 2,
-                    chunk_frames=4, n_devices=1)
-    assert res[0].logits.shape == (3, CLASSES)
+    with pytest.raises(ValueError, match="visible"):
+        tserve(teb, reqs, 2, n_devices=2)
+    base, _ = tserve(teb, reqs, 4, chunk_frames=4)
+    res, _ = tserve(teb, reqs, 4, chunk_frames=4, n_devices=1)
+    with emulated_devices(2):
+        pool = TPool(teb, 4, chunk_frames=4, n_devices=2)
+        sharded, _ = tserve(teb, reqs, 4, chunk_frames=4, n_devices=2)
+    assert pool.n_shards == 2 and pool.shard_loads() == [0, 0]
+    for r, b, s in zip(res, base, sharded):
+        assert r.logits.shape == (r.req_id * 2 + 3, CLASSES)
+        assert np.array_equal(r.logits, b.logits)
+        assert np.array_equal(s.logits, b.logits)
 
 
 def test_cancel_drops_live_and_retiring_sessions(model):
@@ -337,11 +349,12 @@ def test_resolve_reads_only_host_copies_staged_at_snapshot(model,
     assert isinstance(pend.rows, HostCopy)
     assert isinstance(pool._pending_partials[0].rows, HostCopy)
     host = pend.rows.host[0]
+    bank = pool._shards[0].out
     assert host.device.type == "cpu"
     assert host.untyped_storage().data_ptr() != \
-        pool._out.untyped_storage().data_ptr()
+        bank.untyped_storage().data_ptr()
     # what the next chunk would do to the bank before the fetch resolves
-    pool._out.fill_(float("nan"))
+    bank.fill_(float("nan"))
     staged = (pend.rows.host + pool._pending_partials[0].rows.host
               + pool._tele_copy.host)
     with _NoTensorOps(monkeypatch, staged):
@@ -472,7 +485,7 @@ def test_boundaries_ask_for_no_blocking_transfer(model, monkeypatch):
                 got = sum(p.rows.shape[0] for p in parts if p.req_id == 1)
                 backfilled = pool.backfill_partials(1, got)
             pool.staged_sparsity()
-            teb.telemetry_totals(pool.state)
+            pool.telemetry_totals()
         parts += pool.take_partials()
         assert guard.calls == []
         assert backfilled > 4
