@@ -12,8 +12,8 @@ retirement fetch's wait, the dispatch's host time, the chunk's device
 span, ``host_overlap_frac``; see ``boundary_only``): to compare two
 commits, unpack the parent with ``git archive`` and run both trees in
 turns in one call.  ``--sharded-only`` builds the kernels and runs
-phase 9 alone, on as many cards as are visible (with four, N = 2 and 4
-run on distinct cards).
+phases 9 and 10 alone, on as many cards as are visible (with four, N = 2
+and 4 shards and the sharded trainer's meshes run on distinct cards).
 
 Phases; any failure exits non-zero before a result line is printed:
 
@@ -152,7 +152,26 @@ Phases; any failure exits non-zero before a result line is printed:
    under sync debug mode "error".  Launches are counted as path
    ``sharded``, the batch-1 oracle of the checks included.  JSON:
    ``<out>/chip_smoke_sharded.json``.
-10. Prints the card's name and power limit, ``{"kernels": [...]}`` and
+10. Sharded training at full width (``launch/train.py`` on a mesh of
+   several devices: ``ShardedTensor`` leaves, the sharded step of
+   ``launch/steps.py``): ``qwen2-0.5b`` and ``granite-moe-1b-a400m`` in
+   phase 8's cell (fp32 AdamW, B=8, S=256, remat, ``--cbtd-gamma 0.5
+   --cbtd-every 3``) for 4 steps on ``best_mesh_for(4)`` = (1, 4), on 4
+   distinct cards where that many are visible, else on 4 logical devices
+   of cuda:0 (``emulated_devices``).  Its losses and its final params and
+   AdamW state (gathered) are ``torch.equal`` to the same launcher's run
+   on one device (data size 1).  Its checkpoint (host arrays gathered
+   from the shards) restores bit for bit and is placed onto a (2, 2)
+   mesh, which takes 2 more steps (data size 2) with finite losses,
+   printed beside the one-device continuation's.  Per mesh: the step ms,
+   one profiled step's device launches and idle share, peak memory per
+   card, the bytes placed on each mesh device, which must equal the dry
+   run's per-device count for that mesh exactly
+   (``launch/dryrun.py``, fp32), and the dry run's FLOPs of one replica's
+   step beside phase 8's ``train_step_flops``.  None of the five kernels
+   launches (path ``sharded_train``).  JSON:
+   ``<out>/chip_smoke_sharded_train.json``.
+11. Prints the card's name and power limit, ``{"kernels": [...]}`` and
    then, as the last line, ``{"ok": true, "device": {...}}``.
 
 It imports nothing of JAX and nothing of the JAX package ``repro``.
@@ -228,6 +247,12 @@ SPARTUS_LAUNCHES = (
 SHARD_ROUTES = (("auto", False, (1, 2, 4)), ("scatter", False, (1, 2, 4)),
                 ("scatter", True, (1, 4)))
 SHARD_FALLBACK_CAPACITY = 6
+# phase 10: phase 8's cell on SHARD_TRAIN_DEVICES devices, the first
+# SHARD_TRAIN_STEPS steps on best_mesh_for(4) = (1, 4), then
+# SHARD_TRAIN_MORE after a restore onto (2, 2)
+SHARD_TRAIN = ("qwen2-0.5b", "granite-moe-1b-a400m")
+SHARD_TRAIN_DEVICES, SHARD_TRAIN_STEPS, SHARD_TRAIN_MORE = 4, 4, 2
+TOL_SHARD_LOSS = 1e-5
 SHARD_STREAM_SEED = 9
 ARCH_LAUNCHES = (
     (["--arch", "qwen2-0.5b", "--batch", "4", "--steps", "32"],
@@ -2707,6 +2732,202 @@ def sharded_runs(torch, params, am_cfg, requests, out_dir: Path):
     return launches, report
 
 
+# -- phase 10: sharded training at full width ---------------------------------
+
+
+def sharded_train_arch(torch, name):
+    """Phase 10 for one arch (see the module docstring): the one-device
+    launcher run, the sharded one on (1, 4), the restore onto (2, 2) and
+    its steps, the dry run's counts beside them."""
+    from repro_torch import _tree
+    from repro_torch.configs import get_arch
+    from repro_torch.data.lm import LMConfig, LMDataset
+    from repro_torch.distributed import sharding as sh
+    from repro_torch.launch import dryrun, elastic, train
+    from repro_torch.launch import steps as st
+    from repro_torch.launch.mesh import compat_make_mesh, emulated_devices
+    from repro_torch.models.config import ShapeCell
+    from repro_torch.training.checkpoint import CheckpointManager
+
+    cfg, dev = get_arch(name), torch.device("cuda", 0)
+    b, s = ZOO_TRAIN_BATCH, ZOO_TRAIN_SEQ
+    n, steps = SHARD_TRAIN_DEVICES, SHARD_TRAIN_STEPS
+    argv = zoo_train_argv(name, steps)
+    opt_cfg = train.adamw_config(train.parse_args(argv))
+    step = st.make_train_step(cfg, opt_cfg, s)
+    cell = ShapeCell(f"train_b{b}_s{s}", s, b, "train")
+    entry = {"placement": shard_placement(torch, n)[1], "batch": b, "seq": s}
+
+    with emulated_devices(1):          # one device even where there are more
+        one, log = run_launcher(train, argv)
+    check(log[0].startswith(f"[train] arch={name} mesh={{'data': 1, "
+                            f"'model': 1}} devices=1"),
+          f"{name}: one-device launcher log {log[:1]}")
+    one_losses = [one.losses[i] for i in range(1, steps + 1)]
+    one_state = sh.host_tree((one.params, one.opt_state))
+    del one
+    torch.cuda.empty_cache()
+
+    def card_peaks():
+        return [torch.cuda.max_memory_allocated(i) for i in
+                range(min(n, torch.cuda.device_count()))]
+
+    def reset_peaks():
+        for i in range(min(n, torch.cuda.device_count())):
+            torch.cuda.reset_peak_memory_stats(i)
+
+    def dry(mesh_shape):
+        rec = dryrun.cell_record(cfg, cell, compat_make_mesh(
+            mesh_shape, ("data", "model"), "meta"), dtype=torch.float32)
+        return rec, rec["memory"]["params_bytes"] + rec["memory"]["opt_bytes"]
+
+    ckpt = ROOT / "build" / "zoo_shard_ckpt"
+    shutil.rmtree(ckpt, ignore_errors=True)
+    try:
+        reset_peaks()
+        with shard_placement(torch, n)[0]:
+            run, log = run_launcher(train, argv + ["--ckpt-dir", str(ckpt)])
+        check(log[0].startswith(f"[train] arch={name} mesh={{'data': 1, "
+                                f"'model': {n}}} devices={n}"),
+              f"{name}: sharded launcher log {log[:1]}")
+        losses = [run.losses[i] for i in range(1, steps + 1)]
+        check(losses == one_losses, f"{name}: sharded losses {losses} are "
+              f"not the one-device run's {one_losses}")
+        for (path, a), c in zip(
+                _tree.leaves_with_path(sh.host_tree((run.params,
+                                                     run.opt_state))),
+                _tree.leaves(one_state)):
+            check(torch.equal(a, c), f"{name}: {path} after {steps} sharded "
+                  f"steps differs from the one-device run's")
+        rec14, dry14 = dry((1, n))
+        placed = sh.placed_bytes((run.params, run.opt_state))
+        check(placed == [dry14] * n, f"{name}: placed bytes {placed} are not "
+              f"the dry run's {dry14} per device")
+        windows = [w * 1e3 for i, w in enumerate(run.window_s_per_step, 1)
+                   if i > 1 and i % ZOO_TRAIN_EVERY]
+        batch = train.next_batch(cfg, run.data, steps, b, s)
+        prof = profile_step(torch, lambda: step(run.params, run.opt_state,
+                                                batch))
+        entry["mesh_1x4"] = {
+            "losses": losses, "step_ms": float(np.median(windows)),
+            "placed_bytes_per_device": placed, "dry_run_bytes": dry14,
+            "peak_bytes_per_card": card_peaks(),
+            "dry_run_peak_bytes": rec14["memory"]["peak_bytes"],
+            "dry_run_peak_bytes_one_card": _one_card(rec14, placed),
+            "dry_run_flops_replica_step": rec14["flops_replica_step"],
+            "dry_run_collective_bytes": rec14["roofline"]["coll_breakdown"],
+            **{k: v for k, v in prof.items() if k != "by_kernel"}}
+        del run, batch
+        torch.cuda.empty_cache()
+
+        (params, opt), meta, at = CheckpointManager(str(ckpt)).restore_latest(
+            one_state)
+        check(at == steps and meta["data_step"] == steps,
+              f"{name}: checkpoint at {at}, {meta}")
+        for (path, a), c in zip(_tree.leaves_with_path((params, opt)),
+                                _tree.leaves(one_state)):
+            check(torch.equal(a, c), f"{name}: restored {path} differs")
+    finally:
+        shutil.rmtree(ckpt, ignore_errors=True)
+
+    def more_steps(state):
+        data = LMDataset(LMConfig(vocab=cfg.vocab, seq_len=s), b, device=dev)
+        data.load_state_dict({"step": steps})
+        out, times = [], []
+        for k in range(SHARD_TRAIN_MORE):
+            batch = train.next_batch(cfg, data, steps + k, b, s)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            *state, m = step(*state, batch)
+            out.append(float(m["loss"]))
+            times.append((time.perf_counter() - t0) * 1e3)
+        return state, out, times, batch
+
+    reset_peaks()
+    with shard_placement(torch, n)[0]:
+        mesh22 = compat_make_mesh((2, n // 2), ("data", "model"), dev)
+    state = [elastic.reshard(t, mesh22, cfg) for t in (params, opt)]
+    rec22, dry22 = dry((2, n // 2))
+    placed22 = sh.placed_bytes(state)
+    check(placed22 == [dry22] * n, f"{name}: placed bytes on (2, 2) "
+          f"{placed22} are not the dry run's {dry22} per device")
+    state, losses22, ms22, batch = more_steps(state)
+    check(all(np.isfinite(losses22)), f"{name}: losses on (2, 2) {losses22}")
+    prof = profile_step(torch, lambda: step(*state, batch))
+    entry["mesh_2x2"] = {
+        "losses": losses22, "step_ms": ms22[-1],
+        "placed_bytes_per_device": placed22, "dry_run_bytes": dry22,
+        "peak_bytes_per_card": card_peaks(),
+        "dry_run_peak_bytes": rec22["memory"]["peak_bytes"],
+        "dry_run_peak_bytes_one_card": _one_card(rec22, placed22),
+        "dry_run_flops_replica_step": rec22["flops_replica_step"],
+        "dry_run_collective_bytes": rec22["roofline"]["coll_breakdown"],
+        **{k: v for k, v in prof.items() if k != "by_kernel"}}
+    del state, batch
+    torch.cuda.empty_cache()
+
+    _, one_more, _, _ = more_steps([_tree.tree_map(lambda t: t.to(dev), x)
+                                    for x in (params, opt)])
+    entry["one_device_losses_after"] = one_more
+    entry["loss_gap_2x2"] = max(abs(a - c) / abs(c)
+                                for a, c in zip(losses22, one_more))
+    check(entry["loss_gap_2x2"] <= TOL_SHARD_LOSS,
+          f"{name}: (2, 2) losses {losses22} against one device's "
+          f"{one_more}")
+    flops = train_step_flops(cfg, st.abstract_params(cfg, torch.float32),
+                             b, s)
+    entry.update(train_step_flops=flops, dry_run_over_train_step_flops=(
+        entry["mesh_1x4"]["dry_run_flops_replica_step"] / flops))
+    del params, opt, one_state
+    torch.cuda.empty_cache()
+    return entry
+
+
+def _one_card(rec, placed):
+    """The dry run's peak for one card that holds every logical device of
+    the mesh: the busiest device's peak and the others' placed state."""
+    return rec["memory"]["peak_bytes"] + sum(placed[1:])
+
+
+def sharded_train_runs(torch, out_dir: Path):
+    """Phase 10: ``sharded_train_arch`` for each of ``SHARD_TRAIN``; one
+    line per arch and mesh, ``<out>/chip_smoke_sharded_train.json``."""
+    report = {"device": nvidia_smi(), "cards": torch.cuda.device_count(),
+              "archs": {}}
+    for name in SHARD_TRAIN:
+        t0 = time.perf_counter()
+        entry = sharded_train_arch(torch, name)
+        entry["phase_s"] = time.perf_counter() - t0
+        report["archs"][name] = entry
+        for key in ("mesh_1x4", "mesh_2x2"):
+            m = entry[key]
+            print(f"sharded train {name} {key[5:]} ({entry['placement']}): "
+                  f"step {m['step_ms']:.1f} ms; profiled step "
+                  f"{m['profiled_step_wall_ms']:.1f} ms, "
+                  f"{m['device_launches_per_step']} launches, idle "
+                  f"{1 - m['device_busy_share']:.3f}; placed "
+                  f"{m['placed_bytes_per_device'][0]} B per device (dry run "
+                  f"{m['dry_run_bytes']}); peak per card "
+                  f"{[round(p / 2**30, 2) for p in m['peak_bytes_per_card']]}"
+                  f" GiB (dry run {m['dry_run_peak_bytes'] / 2**30:.2f} GiB "
+                  f"per device, {m['dry_run_peak_bytes_one_card'] / 2**30:.2f}"
+                  f" GiB for one card holding all); dry-run FLOPs per replica "
+                  f"step "
+                  f"{m['dry_run_flops_replica_step']:.4g}; losses "
+                  f"{m['losses']}", flush=True)
+        print(f"sharded train {name}: (1, {SHARD_TRAIN_DEVICES}) torch.equal "
+              f"to one device over {SHARD_TRAIN_STEPS} steps; (2, 2) losses "
+              f"{entry['mesh_2x2']['losses']} vs one device "
+              f"{entry['one_device_losses_after']} (gap "
+              f"{entry['loss_gap_2x2']:.3g}); dry-run FLOPs "
+              f"{entry['mesh_1x4']['dry_run_flops_replica_step']:.4g} vs "
+              f"train_step_flops {entry['train_step_flops']:.4g} (x"
+              f"{entry['dry_run_over_train_step_flops']:.3f})", flush=True)
+    (out_dir / "chip_smoke_sharded_train.json").write_text(
+        json.dumps(report, indent=1))
+    return report
+
+
 def boundary_costs(torch, rt, engine, requests, observability=None):
     """Serve ``requests`` (all arriving at once) through one chunked pool
     with ``serve_requests``' loop, ``step_chunk`` instrumented; returns
@@ -2768,7 +2989,7 @@ def boundary_only(torch, args) -> int:
 
 
 def sharded_only(torch, args) -> int:
-    """``--sharded-only``: the build and phase 9, nothing else."""
+    """``--sharded-only``: the build and phases 9 and 10, nothing else."""
     from repro_torch import serving as rt
     from repro_torch.configs.spartus_lstm import DELTA_LSTM_2L_1024H
     from repro_torch.kernels import _build
@@ -2784,6 +3005,7 @@ def sharded_only(torch, args) -> int:
     requests = make_requests(rt, am_cfg, np.random.default_rng(args.seed))
     launches, _ = sharded_runs(torch, params, am_cfg, requests, out_dir)
     print(json.dumps({"sharded_launches": launches}), flush=True)
+    sharded_train_runs(torch, out_dir)
     return 0
 
 
@@ -2832,7 +3054,7 @@ def main() -> int:
     ap.add_argument("--label", default="this tree",
                     help="with --boundary-only: a name for the tree")
     ap.add_argument("--sharded-only", action="store_true",
-                    help="build the kernels and run phase 9 alone (see "
+                    help="build the kernels and run phases 9 and 10 alone (see "
                          "sharded_only) and exit")
     args = ap.parse_args()
 
@@ -2941,6 +3163,14 @@ def main() -> int:
     sharded_launches, _ = sharded_runs(torch, params, am_cfg, requests,
                                        out_dir)
 
+    # phase 10: sharded training at full width
+    zero_counts(counters)
+    sharded_train_runs(torch, out_dir)
+    sharded_train_launches = read_counts(torch, counters)
+    for name, n in sharded_train_launches.items():
+        check(n == 0, f"{name}: {n} launches on the sharded training path, "
+                      f"which reaches no kernel")
+
     kernels = []
     for name, row in rows.items():
         # stsp_spmv (B=1) serves only the batch-1 engine; the others are
@@ -2956,7 +3186,8 @@ def main() -> int:
                 contracts=contract_launches[name],
                 zoo=zoo_launches[name],
                 zoo_train=zoo_train_launches[name],
-                sharded=sharded_launches[name]),
+                sharded=sharded_launches[name],
+                sharded_train=sharded_train_launches[name]),
             "max_abs_err": row["max_abs_err"], "ms": row["ms"],
             "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
             "bound_by": row["bound_by"], "library_ms": row["library_ms"],

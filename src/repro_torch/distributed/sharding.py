@@ -19,15 +19,25 @@ named by its index (``1/layers/...``) where the reference writes
 the specs agree.
 
 Placing a tree (``NamedSharding.place``, ``device_put``) puts every leaf
-whole on the one device of a one-device mesh.  Placing shards on more
-than one card is not ported (ROADMAP.md queue 1 item 10) and raises.
+whole on the one device of a one-device mesh.  On a mesh of several
+devices a leaf becomes a `ShardedTensor`: one tensor per mesh device, in
+the mesh's row-major order, each the block its ``PartitionSpec`` gives
+that device (a dimension sharded over an axis group splits into equal
+blocks; along a replicated one every device holds the whole extent).
+There is no GSPMD: the port is single-controller, one process holds
+every shard, and `gather` (the inverse) reassembles a leaf on any one
+device or the host.  The devices of a mesh may repeat
+(``launch.mesh.emulated_devices``): every block is a tensor of its own
+all the same, so the bytes placed on a logical device are its blocks'.
 """
 from __future__ import annotations
 
 import dataclasses
+import math
 import re
-from typing import Optional, Tuple
+from typing import List, Optional, Tuple
 
+import numpy as np
 import torch
 
 from repro_torch import _tree
@@ -52,20 +62,132 @@ def is_spec(x) -> bool:
     return isinstance(x, PartitionSpec)
 
 
+def _axes(entry) -> Tuple[str, ...]:
+    """The mesh axes of one spec entry (a name, a tuple of names, None)."""
+    if entry is None:
+        return ()
+    return (entry,) if isinstance(entry, str) else tuple(entry)
+
+
+@dataclasses.dataclass(frozen=True, eq=False)
+class ShardedTensor:
+    """A leaf laid out on a mesh of several devices: ``shards[i]`` is the
+    block of mesh device ``i`` (row-major), a tensor of its own on that
+    device.  A tree leaf (``_tree`` descends only into dicts, lists and
+    tuples)."""
+    shards: Tuple[torch.Tensor, ...]
+    shape: torch.Size
+    spec: PartitionSpec
+    mesh: Mesh
+
+    @property
+    def dtype(self) -> torch.dtype:
+        return self.shards[0].dtype
+
+    @property
+    def ndim(self) -> int:
+        return len(self.shape)
+
+    def numel(self) -> int:
+        return math.prod(self.shape)
+
+
+def _blocks(spec: PartitionSpec, mesh: Mesh, ndim: int
+            ) -> List[Tuple[Tuple[int, int], ...]]:
+    """Per mesh device (row-major), per dimension: (block index, block
+    count) under ``spec``; an axis group's index is row-major over the
+    group's axes in the order the spec names them."""
+    entries = tuple(spec) + (None,) * (ndim - len(spec))
+    out = []
+    for coord in np.ndindex(*mesh.axis_sizes):
+        at = dict(zip(mesh.axis_names, coord))
+        dims = []
+        for entry in entries:
+            idx, count = 0, 1
+            for ax in _axes(entry):
+                size = mesh.shape[ax]
+                idx, count = idx * size + at[ax], count * size
+            dims.append((idx, count))
+        out.append(tuple(dims))
+    return out
+
+
+def _block(x: torch.Tensor, dims) -> torch.Tensor:
+    for d, (idx, count) in enumerate(dims):
+        if count > 1:
+            x = x.tensor_split(count, dim=d)[idx]
+    return x
+
+
 @dataclasses.dataclass(frozen=True)
 class NamedSharding:
     mesh: Mesh
     spec: PartitionSpec
 
-    def place(self, x: torch.Tensor) -> torch.Tensor:
-        """``x`` laid out by this sharding: whole on the mesh's device when
-        the mesh has one."""
-        if self.mesh.size != 1 or not self.mesh.devices:
-            raise NotImplementedError(
-                f"placing shards on mesh {self.mesh.shape} is not ported "
-                f"(ROADMAP.md queue 1 item 10): only a mesh of one device "
-                f"can hold a tree")
-        return x.to(self.mesh.devices[0])
+    def place(self, x):
+        """``x`` (a tensor, a numpy array or a `ShardedTensor` of another
+        layout) laid out by this sharding: whole on the mesh's device when
+        the mesh has one, else a `ShardedTensor` whose every block is a
+        copy of its own.  A shape-only mesh holds nothing and raises."""
+        if not self.mesh.devices:
+            raise ValueError(f"mesh {self.mesh.shape} is shape-only: "
+                             f"nothing can be placed on it")
+        first = self.mesh.devices[0]
+        if isinstance(x, ShardedTensor):
+            x = gather(x, first)
+        elif isinstance(x, np.ndarray):
+            x = torch.from_numpy(x)
+        if self.mesh.size == 1:
+            return x.to(first)
+        shape = x.shape
+        for d, entry in enumerate(self.spec):
+            count = math.prod(self.mesh.shape[a] for a in _axes(entry))
+            if shape[d] % count:
+                raise ValueError(f"dim {d} of {tuple(shape)} does not split "
+                                 f"into {count} blocks ({self.spec})")
+        shards = tuple(
+            torch.empty(b.shape, dtype=b.dtype, device=dev).copy_(b)
+            for b, dev in zip((_block(x, dims) for dims in
+                               _blocks(self.spec, self.mesh, x.ndim)),
+                              self.mesh.devices))
+        return ShardedTensor(shards, shape, self.spec, self.mesh)
+
+
+def gather(x, device=None) -> torch.Tensor:
+    """The whole tensor of a `ShardedTensor` on ``device`` (the host by
+    default), each block copied from the first mesh device holding it; a
+    plain tensor is moved there."""
+    device = torch.device("cpu") if device is None else torch.device(device)
+    if not isinstance(x, ShardedTensor):
+        return x.to(device)
+    out = torch.empty(x.shape, dtype=x.dtype, device=device)
+    seen = set()
+    for dims, shard in zip(_blocks(x.spec, x.mesh, x.ndim), x.shards):
+        if dims in seen:
+            continue
+        seen.add(dims)
+        _block(out, dims).copy_(shard)
+    return out
+
+
+def host_tree(tree):
+    """``tree`` with every tensor on the host, each `ShardedTensor`
+    gathered (a checkpoint's or ``elastic.reshard``'s input); a tensor
+    already there is itself."""
+    return _tree.tree_map(
+        lambda x: gather(x) if isinstance(x, (torch.Tensor, ShardedTensor))
+        else x, tree)
+
+
+def placed_bytes(tree) -> List[int]:
+    """The bytes of ``tree`` on each device of its mesh (row-major): each
+    `ShardedTensor`'s blocks, a plain tensor's whole on its one device."""
+    per = None
+    for leaf in _tree.leaves(tree):
+        parts = (leaf.shards if isinstance(leaf, ShardedTensor) else (leaf,))
+        sizes = [p.numel() * p.element_size() for p in parts]
+        per = sizes if per is None else [a + b for a, b in zip(per, sizes)]
+    return per or []
 
 
 def _div(dim: int, mesh: Mesh, *axes: str):

@@ -4,9 +4,9 @@ of ``repro/launch/elastic.py``.
 Checkpoints store full host arrays keyed by tree path, so elasticity is
 a re-layout problem: build the mesh from the devices that exist,
 recompute the partition specs with the same rules (any non-divisible dim
-falls back to replication), and place the tree.  The port places a tree
-on a mesh of one device only; shards over several cards wait for
-ROADMAP.md queue 1 item 10.
+falls back to replication), and place the tree: whole on a one-device
+mesh, as `ShardedTensor` leaves on a mesh of several devices (a leaf
+already sharded on another mesh is gathered first).
 
 Job-level policy (``launch/train.py``): the (process, step) -> data
 mapping is deterministic, so a restarted job replays the exact stream;
@@ -35,7 +35,8 @@ def best_mesh_for(n_devices: int, device: DeviceLike = None) -> Mesh:
 
 
 def reshard(tree, mesh: Mesh, cfg=None):
-    """``tree`` placed on ``mesh`` with the standard rules."""
+    """``tree`` (host arrays, tensors or another mesh's shards) placed on
+    ``mesh`` with the standard rules."""
     return device_put(tree, to_shardings(param_specs(tree, mesh, cfg), mesh))
 
 

@@ -18,12 +18,15 @@ runs its slot shards as logical shards on one device that way, so code
 that places shards never assumes two shards' devices differ.
 
 ``data_axes()`` returns the axes a global batch shards over (pod folds
-into data parallelism); ``model_axis()`` the tensor-parallel axis.
+into data parallelism); ``model_axis()`` the tensor-parallel axis;
+``replica_devices()`` the device that computes each data replica's
+slice of a sharded train step.
 """
 from __future__ import annotations
 
 import contextlib
 import dataclasses
+import itertools
 import math
 from typing import Dict, Tuple
 
@@ -54,6 +57,12 @@ def _visible(device: torch.device):
         return [torch.device("cuda", i)
                 for i in range(torch.cuda.device_count())]
     return [torch.device(device.type)]
+
+
+def visible_devices(device: DeviceLike = None):
+    """The devices a mesh over ``device``'s type may span now (copies
+    inside ``emulated_devices``)."""
+    return _visible(resolve_device(device))
 
 
 @contextlib.contextmanager
@@ -98,12 +107,29 @@ def compat_make_mesh(shape, axes, device: DeviceLike = None) -> Mesh:
     return Mesh(axes, shape, tuple(avail[:n]))
 
 
+_ACTIVE = None
+
+
+def active_mesh():
+    """The mesh of the innermost ``mesh_context``, or None."""
+    return _ACTIVE
+
+
+@contextlib.contextmanager
 def mesh_context(mesh: Mesh):
-    """Context manager activating ``mesh``: on a mesh of cards its first
-    card becomes the current CUDA device."""
-    if mesh.devices and mesh.devices[0].type == "cuda":
-        return torch.cuda.device(mesh.devices[0])
-    return contextlib.nullcontext(mesh)
+    """Activate ``mesh`` within the block: ``distributed.hints`` resolves
+    its annotations against it, and on a mesh of cards its first card is
+    the current CUDA device."""
+    global _ACTIVE
+    prev, _ACTIVE = _ACTIVE, mesh
+    try:
+        if mesh.devices and mesh.devices[0].type == "cuda":
+            with torch.cuda.device(mesh.devices[0]):
+                yield mesh
+        else:
+            yield mesh
+    finally:
+        _ACTIVE = prev
 
 
 def make_production_mesh(*, multi_pod: bool = False) -> Mesh:
@@ -134,6 +160,15 @@ def data_axes(mesh: Mesh) -> Tuple[str, ...]:
 
 def model_axis(mesh: Mesh) -> str:
     return "model"
+
+
+def replica_devices(mesh: Mesh) -> Tuple[torch.device, ...]:
+    """The compute device of each data replica: the mesh device at each
+    coordinate of the data axes (row-major) with every other axis at 0."""
+    keep = [a in data_axes(mesh) for a in mesh.axis_names]
+    return tuple(dev for coord, dev in zip(
+        itertools.product(*map(range, mesh.axis_sizes)), mesh.devices)
+        if all(k or c == 0 for k, c in zip(keep, coord)))
 
 
 def axis_size(mesh: Mesh, *names: str) -> int:

@@ -11,6 +11,32 @@ makes no host sync.  It donates its params and optimizer state, as the
 reference's launcher jits it with ``donate_argnums=(0, 1)``: the update
 is written into them (``adamw_update(..., donate=True)``).
 
+Params and optimizer state placed on a mesh of several devices
+(`ShardedTensor` leaves, ``distributed/sharding.py``) take the sharded
+step, the single-controller counterpart of the reference's GSPMD step
+over data-parallel replicas:
+
+  1. gather every leaf whole onto each data replica's compute device
+     (``launch.mesh.replica_devices``: the mesh device at (d, 0, ...));
+  2. run ``loss_and_grads`` (its microbatches too) on that replica's
+     slice of the batch, as ``batch_spec`` cuts it; a batch the data size
+     D does not divide is replicated, as the reference's rule says, and
+     computed once;
+  3. sum the replicas' losses and gradients in the fixed order d = 0 ..
+     D-1 on the first replica's device, then divide by D;
+  4. take AdamW's global norm on the reduced whole gradients (a norm
+     summed over shards would count a replicated block once per copy);
+  5. split each gradient by its leaf's spec and update every shard in
+     place (the step counter is replicated: every device holds the same
+     copy).
+
+At D = 1 gather and split copy exactly and the compute runs on the whole
+batch in the one-device order, so the sharded step is bit-equal to the
+one-device step.  The "model" axis shards storage only: no matmul is
+split over it, and every replica gathers the whole tree at once; both
+are speed work (ROADMAP.md queue 2), as is issuing the replicas' work
+from one host thread.
+
 The abstract builders return trees of ``meta`` tensors, shapes and
 dtypes with no memory behind them (the reference's ``jax.eval_shape``).
 """
@@ -22,9 +48,13 @@ import torch
 from torch._subclasses.fake_tensor import FakeTensorMode
 
 from repro_torch import _tree
+from repro_torch.distributed.sharding import (NamedSharding, ShardedTensor,
+                                              batch_spec, gather)
+from repro_torch.launch.mesh import replica_devices
 from repro_torch.models import api
 from repro_torch.models.config import ArchConfig, ShapeCell
-from repro_torch.training.optimizer import (AdamWConfig, adamw_init,
+from repro_torch.training.optimizer import (AdamState, AdamWConfig,
+                                            adamw_init, adamw_leaf_update,
                                             adamw_update)
 
 
@@ -101,12 +131,69 @@ def make_train_step(cfg: ArchConfig, opt_cfg: AdamWConfig, seq_len: int,
     loss_and_grads = make_loss_and_grads(cfg, seq_len, remat, microbatches)
 
     def train_step(params, opt_state, batch):
+        leaf = _tree.leaves(params)[0]
+        if isinstance(leaf, ShardedTensor):
+            return _sharded_step(loss_and_grads, opt_cfg, leaf.mesh, params,
+                                 opt_state, batch)
         loss, grads = loss_and_grads(params, batch)
         params, opt_state, metrics = adamw_update(grads, opt_state, params,
                                                   opt_cfg, donate=True)
         return params, opt_state, {"loss": loss, **metrics}
 
     return train_step
+
+
+def _replica_batches(batch, mesh, devices):
+    """Each replica's slice of ``batch`` on its device, as ``batch_spec``
+    cuts dim 0; one slice, the whole batch, where it replicates."""
+    first = next(iter(batch.values()))
+    if batch_spec(tuple(first.shape), mesh)[0] is None:
+        devices = devices[:1]
+    return [{k: v.tensor_split(len(devices))[d].to(dev)
+             for k, v in batch.items()} for d, dev in enumerate(devices)]
+
+
+def _sharded_step(loss_and_grads, opt_cfg, mesh, params, opt_state, batch):
+    """One train step over `ShardedTensor` params and optimizer state (see
+    the module docstring); the shards are updated in place and
+    returned."""
+    devices = replica_devices(mesh)
+    losses, grads = [], []
+    for dev, part in zip(devices, _replica_batches(batch, mesh, devices)):
+        whole = _tree.tree_map(lambda x: gather(x, dev), params)
+        loss, g = loss_and_grads(whole, part)
+        del whole
+        losses.append(loss)
+        grads.append(g)
+    home = devices[0]
+    loss = losses[0]
+    grads = grads[0] if len(grads) == 1 else _tree.tree_map(
+        lambda *gs: _ordered_mean([g.to(home) for g in gs]), *grads)
+    if len(losses) > 1:
+        loss = _ordered_mean([x.to(home) for x in losses])
+
+    upd, step, metrics = adamw_leaf_update(grads, gather(opt_state.step, home),
+                                           opt_cfg, donate=True)
+    g, m, v = (dict(_tree.leaves_with_path(t))
+               for t in (grads, opt_state.m, opt_state.v))
+    with torch.no_grad():
+        for path, p in _tree.leaves_with_path(params):
+            blocks = NamedSharding(p.mesh, p.spec).place(g.pop(path)).shards
+            for g_k, m_k, v_k, p_k in zip(blocks, m[path].shards,
+                                          v[path].shards, p.shards):
+                upd(g_k, m_k, v_k, p_k)
+    sp = opt_state.step
+    step = NamedSharding(sp.mesh, sp.spec).place(step)
+    return params, AdamState(step, opt_state.m, opt_state.v), {
+        "loss": loss, **metrics}
+
+
+def _ordered_mean(xs):
+    """``(x_0 + x_1 + ... + x_{D-1}) / D``, summed in that order."""
+    acc = xs[0].clone()
+    for x in xs[1:]:
+        acc.add_(x)
+    return acc.div_(len(xs))
 
 
 def _is_weight(leaf) -> bool:

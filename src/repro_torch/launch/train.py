@@ -6,18 +6,21 @@
     PYTHONPATH=src python -m repro_torch.launch.train --arch qwen3-1.7b \
         --reduced --steps 4 --batch 4 --seq 32 --device cpu
 
-It trains on one card (``--device``, ``cuda`` by default; ``cpu`` runs on
-the host).  The mesh is ``best_mesh_for`` the visible cards, and the
-params and optimizer state are placed by the partition rules
-(``distributed/sharding.py``); placing shards on more than one card is
-not ported (ROADMAP.md queue 1 item 10), so with several cards visible
-it exits naming that item rather than train on one of them quietly.
+It trains on the visible cards (``--device``, ``cuda`` by default; ``cpu``
+runs on the host): the mesh is ``best_mesh_for`` their count, and the
+params and optimizer state are placed on it by the partition rules
+(``distributed/sharding.py``); on a mesh of several devices
+``launch/steps.py`` takes its sharded step.  Inside
+``launch.mesh.emulated_devices(n)`` the mesh spans ``n`` logical copies
+of the one host device or of ``cuda:0``.
 
 Fault tolerance: it resumes from the latest committed checkpoint
 (params, optimizer, data position); preemption mid-step costs at most
-``--ckpt-every`` steps.  The paper's technique is first-class:
-``--cbtd-gamma`` prunes every linear with CBTD after every
-``--cbtd-every``-th step (Alg. 2), and the LM data stream is the
+``--ckpt-every`` steps.  A checkpoint holds host arrays gathered from
+the shards, and a restore places them by the rules again, so a run may
+resume on another mesh (``launch/elastic.py``).  The paper's technique
+is first-class: ``--cbtd-gamma`` prunes every linear with CBTD after
+every ``--cbtd-every``-th step (Alg. 2), and the LM data stream is the
 synthetic pipeline (``data/lm.py``).  The loss is read on the host only
 on log steps.
 
@@ -37,14 +40,17 @@ from typing import Dict, List, Optional
 
 import torch
 
+from repro_torch import _tree
 from repro_torch._device import resolve_device
 from repro_torch.configs import get_arch
 from repro_torch.core import alpha_at, cbtd_prune_tree
+from repro_torch.core.cbtd import _match_layout
 from repro_torch.data.lm import LMConfig, LMDataset, seed_for
-from repro_torch.distributed.sharding import (device_put, param_specs,
-                                              to_shardings)
+from repro_torch.distributed.sharding import (NamedSharding, ShardedTensor,
+                                              device_put, gather, host_tree,
+                                              param_specs, to_shardings)
 from repro_torch.launch.elastic import best_mesh_for
-from repro_torch.launch.mesh import mesh_context
+from repro_torch.launch.mesh import mesh_context, visible_devices
 from repro_torch.launch.steps import make_train_step
 from repro_torch.models import api
 from repro_torch.training.checkpoint import CheckpointManager
@@ -86,10 +92,6 @@ def parse_args(argv=None):
     return ap.parse_args(argv)
 
 
-def _n_devices(device: torch.device) -> int:
-    return torch.cuda.device_count() if device.type == "cuda" else 1
-
-
 def adamw_config(args) -> AdamWConfig:
     """The run's optimizer: warmup over a fifth of the steps (at most 20),
     then a cosine decay to the last step."""
@@ -103,6 +105,24 @@ def prune_layout(cfg, gamma: Optional[float]):
         return None
     return {k: dataclasses.replace(v, gamma=gamma)
             for k, v in api.cbtd_layout(cfg).items()}
+
+
+def prune(params, layout, alpha):
+    """``cbtd_prune_tree``.  A sharded leaf of the layout is pruned whole
+    and split again: Alg. 1 ranks whole M-row subcolumns, and a shard
+    boundary inside one would change which weights are kept."""
+    def whole(path, x):
+        if isinstance(x, ShardedTensor) and _match_layout(path, layout):
+            return gather(x, x.mesh.devices[0])
+        return x
+
+    pruned = cbtd_prune_tree(_tree.map_with_path(whole, params), layout,
+                             alpha)
+    return _tree.tree_map(
+        lambda new, old: (NamedSharding(old.mesh, old.spec).place(new)
+                          if isinstance(old, ShardedTensor)
+                          and not isinstance(new, ShardedTensor) else new),
+        pruned, params)
 
 
 def next_batch(cfg, data: LMDataset, step: int, batch: int, seq: int):
@@ -119,14 +139,8 @@ def next_batch(cfg, data: LMDataset, step: int, batch: int, seq: int):
 
 
 def train(args) -> TrainRun:
-    # several cards are refused before any card is touched
-    n_dev = _n_devices(torch.device(args.device))
-    if n_dev > 1:
-        raise SystemExit(
-            f"train: {n_dev} cards are visible; placing the trainer's shards "
-            f"on several cards is not ported (ROADMAP.md queue 1 item 10): "
-            f"expose one card (CUDA_VISIBLE_DEVICES=0)")
     device = resolve_device(args.device)
+    n_dev = len(visible_devices(device))
     cfg = get_arch(args.arch)
     if args.reduced:
         cfg = cfg.reduced()
@@ -171,7 +185,7 @@ def train(args) -> TrainRun:
             params, opt_state, metrics = train_step(params, opt_state, batch)
             if layout and (step + 1) % args.cbtd_every == 0:
                 alpha = alpha_at(step // args.cbtd_every, 0.2)
-                params = cbtd_prune_tree(params, layout, alpha)
+                params = prune(params, layout, alpha)
             if (step + 1) % args.log_every == 0:
                 losses[step + 1] = float(metrics["loss"])
                 windows.append((time.time() - t0) / args.log_every)
@@ -179,10 +193,10 @@ def train(args) -> TrainRun:
                       f"({windows[-1]:.2f}s/step)", flush=True)
                 t0 = time.time()
             if mgr and (step + 1) % args.ckpt_every == 0:
-                mgr.save(step + 1, (params, opt_state),
+                mgr.save(step + 1, host_tree((params, opt_state)),
                          {"step": step + 1, "data_step": data.step})
         if mgr:
-            mgr.save(args.steps, (params, opt_state),
+            mgr.save(args.steps, host_tree((params, opt_state)),
                      {"step": args.steps, "data_step": data.step})
             mgr.wait()
     print("[train] done", flush=True)

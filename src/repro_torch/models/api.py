@@ -16,8 +16,8 @@ leaf.  ``init_params`` draws on the generator's device: pass a
 the card without a host round trip.
 
 The paper's technique hooks in through ``cbtd_layout(cfg)``: CBTD
-patterns for every prunable linear of the arch.  ``input_specs`` (the
-dry-run's shape stand-ins) is not ported yet.
+patterns for every prunable linear of the arch; ``input_specs(cfg,
+cell)`` gives the dry run's stand-ins for a shape cell's inputs.
 """
 from __future__ import annotations
 
@@ -28,7 +28,7 @@ import torch
 from repro_torch._device import (DeviceLike, require_full_fp32_matmul,
                                  resolve_device)
 from repro_torch.models import encdec, mamba2, rglru, transformer
-from repro_torch.models.config import ArchConfig
+from repro_torch.models.config import ArchConfig, ShapeCell
 from repro_torch.models.lstm_am import params_from_numpy  # noqa: F401
 from repro_torch.models.transformer import chunked_ce_loss, head_weight
 
@@ -140,6 +140,36 @@ def prefill(params, cfg: ArchConfig, inputs, *, q_chunk: int = 0):
         enc_out = encdec.encode(params, cfg, inputs, q_chunk=q_chunk)
         return encdec.build_cross_cache(params, cfg, enc_out)
     raise ValueError(cfg.family)
+
+
+def input_specs(cfg: ArchConfig, cell: ShapeCell,
+                dtype=torch.bfloat16) -> Dict[str, torch.Tensor]:
+    """``meta`` tensors (shape and dtype, no memory) standing in for every
+    model input of a shape cell, the reference's ``ShapeDtypeStruct``s."""
+    b, s = cell.global_batch, cell.seq_len
+
+    def spec(shape, dt=torch.int32):
+        return torch.empty(shape, dtype=dt, device="meta")
+
+    if cell.kind == "train":
+        if cfg.family == "vlm":
+            return {"inputs_embeds": spec((b, s, cfg.d_model), dtype),
+                    "targets": spec((b, s))}
+        if cfg.family == "audio":
+            s_dec = s // DEC_TRAIN_FRAC
+            return {"frames": spec((b, s, cfg.d_model), dtype),
+                    "dec_tokens": spec((b, s_dec)),
+                    "dec_targets": spec((b, s_dec))}
+        return {"tokens": spec((b, s)), "targets": spec((b, s))}
+    if cell.kind == "prefill":
+        if cfg.family in ("vlm", "audio"):
+            return {"inputs": spec((b, s, cfg.d_model), dtype)}
+        return {"inputs": spec((b, s))}
+    if cell.kind == "decode":
+        if cfg.family == "vlm":
+            return {"inputs": spec((b, 1, cfg.d_model), dtype)}
+        return {"inputs": spec((b, 1))}
+    raise ValueError(cell.kind)
 
 
 def make_train_batch(cfg: ArchConfig, generator: torch.Generator, batch: int,

@@ -79,7 +79,9 @@ def encode(params: Params, cfg: ArchConfig, frames: torch.Tensor,
             q_chunk=q_chunk, rope_base=1e4,
         )
         x = x + h
-        return x + L.swiglu(lp["mlp"], L.rms_norm(lp["mlp_norm"], x)), None
+        from repro_torch.distributed import hints
+        x = x + L.swiglu(lp["mlp"], L.rms_norm(lp["mlp_norm"], x))
+        return hints.constrain(x, "batch", "model", None), None
 
     if remat:
         body = _remat(body)
@@ -107,7 +109,9 @@ def decode_train_hidden(params: Params, cfg: ArchConfig, tokens: torch.Tensor,
             causal=False, q_chunk=q_chunk, kv_x=enc_out,
         )
         x = x + h
-        return x + L.swiglu(lp["mlp"], L.rms_norm(lp["mlp_norm"], x)), None
+        from repro_torch.distributed import hints
+        x = x + L.swiglu(lp["mlp"], L.rms_norm(lp["mlp_norm"], x))
+        return hints.constrain(x, "batch", "model", None), None
 
     if remat:
         body = _remat(body)

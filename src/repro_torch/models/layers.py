@@ -111,10 +111,15 @@ def _attn_block(
     causal: bool,
     window: int,
     kv_len: Optional[torch.Tensor],  # mask kv_pos >= kv_len (decode)
+    apply_hints: bool = True,        # decode paths pre-constrain their layout
 ) -> torch.Tensor:
     """Masked softmax attention in fp32.  Masked scores are ``NEG_INF``,
     not ``-inf``, so a fully masked row gives uniform weights, not NaN."""
+    from repro_torch.distributed import hints
+
     hd = q.shape[-1]
+    if apply_hints:
+        q, k, v = hints.shard_attn(q, k, v)
     scores = torch.einsum("bqhd,bthd->bhqt", q.float(), k.float()) * (hd ** -0.5)
     mask = torch.ones((q_pos.shape[0], kv_pos.shape[0]), dtype=torch.bool,
                       device=q.device)
@@ -248,8 +253,11 @@ def attention_decode_step(
     new_k = cache["k"].index_copy(1, index, k)
     new_v = cache["v"].index_copy(1, index, v)
 
+    from repro_torch.distributed import hints
+
     ke = _expand_gqa(new_k, n_heads)
     ve = _expand_gqa(new_v, n_heads)
+    q, ke, ve = hints.shard_attn_decode(q, ke, ve, n_kv_heads)
     kv_pos = torch.arange(s_cache, device=x.device)
     if window:
         # ring buffer: recover absolute positions of each slot to mask
@@ -263,7 +271,7 @@ def attention_decode_step(
         out = torch.einsum("bhqt,bthd->bqhd", probs, ve.float()).to(x.dtype)
     else:
         out = _attn_block(q, ke, ve, pos[None], kv_pos, causal=False,
-                          window=0, kv_len=pos + 1)
+                          window=0, kv_len=pos + 1, apply_hints=False)
     y = linear(p["o"], out.reshape(b, 1, n_heads * hd))
     return y, {"k": new_k, "v": new_v}
 
@@ -347,16 +355,20 @@ def moe_forward(p: Params, x: torch.Tensor, *, top_k: int,
     weighted expert outputs back to their (token, k) places and sums
     over k: a fixed order on every device, where the reference's
     ``.at[token_of].add`` scatter-adds them in expert order."""
+    from repro_torch.distributed import hints
+
     b, s, d = x.shape
     e = p["router"]["w"].shape[0]
 
     # long sequences dispatch in sequence blocks: per-(row, block) sort +
-    # capacity keeps the dispatch buffers bounded
+    # capacity keeps the dispatch buffers bounded; the fused (B*nb) dim is
+    # pinned to batch sharding
     block = 2048
     if s > block and s % block == 0:
         nb = s // block
-        yb = moe_forward(p, x.reshape(b * nb, block, d), top_k=top_k,
-                         capacity_factor=capacity_factor)
+        xb = hints.constrain(x.reshape(b * nb, block, d), "batch", None, None)
+        yb = moe_forward(p, xb, top_k=top_k, capacity_factor=capacity_factor)
+        yb = hints.constrain(yb, "batch", None, None)
         return yb.reshape(b, s, d)
 
     cap = int(max(1, round(s * top_k / e * capacity_factor)))
@@ -372,10 +384,12 @@ def moe_forward(p: Params, x: torch.Tensor, *, top_k: int,
     buf = torch.zeros((b, e * cap + 1, d), dtype=x.dtype, device=x.device)
     buf = buf.index_put((rows, slot), x[rows, token_of])
     buf = buf[:, :e * cap].reshape(b, e, cap, d)                   # [B,E,C,d]
+    buf = hints.constrain(buf, "batch", "model", None, None)
 
     act = F.silu(torch.einsum("becd,efd->becf", buf, p["gate"])) * torch.einsum(
         "becd,efd->becf", buf, p["up"])
-    o = torch.einsum("becf,edf->becd", act, p["down"]).reshape(b, e * cap, d)
+    o = torch.einsum("becf,edf->becd", act, p["down"])
+    o = hints.constrain(o, "batch", "model", None, None).reshape(b, e * cap, d)
 
     gathered = torch.where(keep[..., None],
                            o[rows, torch.where(keep, dest, 0)], 0.0)

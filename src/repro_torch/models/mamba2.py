@@ -13,6 +13,7 @@ O(1) in sequence length.
 """
 from __future__ import annotations
 
+import functools
 import math
 from typing import Any, Dict, Optional, Tuple
 
@@ -23,6 +24,13 @@ from repro_torch.models import layers as L
 from repro_torch.models.config import ArchConfig
 from repro_torch.models.scan import remat as _remat
 from repro_torch.models.scan import scan_layers
+
+
+def _einsum(eq: str, *ops: torch.Tensor) -> torch.Tensor:
+    """``jnp.einsum``: operands of mixed precision (the bf16 dry run's
+    weights against fp32 state) meet in their common dtype."""
+    dtype = functools.reduce(torch.promote_types, (o.dtype for o in ops))
+    return torch.einsum(eq, *(o.to(dtype) for o in ops))
 
 Params = Dict[str, Any]
 
@@ -114,13 +122,13 @@ def ssd_chunked(
     # so; the forward is the same either way)
     decay = torch.exp(torch.where(tri[None, None, :, :, None], diff,
                                   -math.inf))
-    cb = torch.einsum("bcin,bcjn->bcij", cc, bc)
+    cb = _einsum("bcin,bcjn->bcij", cc, bc)
     w = cb[..., None] * decay * dtc[:, :, None, :, :]          # [b,nc,i,j,h]
-    y_intra = torch.einsum("bcijh,bcjhp->bcihp", w, xc)
+    y_intra = _einsum("bcijh,bcjhp->bcihp", w, xc)
 
     # chunk-boundary states
     decay_to_end = torch.exp(l_cum[:, :, -1:, :] - l_cum)      # [b,nc,l,h]
-    z = torch.einsum("bclh,bclhp,bcln->bchpn", decay_to_end * dtc, xc, bc)
+    z = _einsum("bclh,bclhp,bcln->bchpn", decay_to_end * dtc, xc, bc)
     chunk_decay = torch.exp(l_cum[:, :, -1, :])                # [b,nc,h]
 
     def step(state, inp):
@@ -134,7 +142,7 @@ def ssd_chunked(
         step, s0, (z.transpose(0, 1), chunk_decay.transpose(0, 1)))
     s_starts = s_starts.transpose(0, 1)                        # [b,nc,h,p,n]
 
-    y_cross = torch.einsum("bcin,bchpn,bcih->bcihp", cc, s_starts,
+    y_cross = _einsum("bcin,bchpn,bcih->bcihp", cc, s_starts,
                            torch.exp(l_cum))
     y = (y_intra + y_cross).reshape(bsz, s, h, p)
     return y.to(x.dtype), final
@@ -179,7 +187,8 @@ def forward_hidden(params: Params, cfg: ArchConfig, tokens: torch.Tensor,
 
     def body(carry, lp):
         h = block_forward(lp, cfg, L.rms_norm(lp["norm"], carry), chunk)
-        return carry + h, None
+        from repro_torch.distributed import hints
+        return hints.constrain(carry + h, "batch", "model", None), None
 
     if remat:
         body = _remat(body)
@@ -222,7 +231,7 @@ def decode_step(params: Params, cfg: ArchConfig, tokens: torch.Tensor, cache):
         dt_raw = zxbcdt[..., d_inner + conv_dim:]
         # conv ring state: window = [conv_st, xbc]
         win = torch.cat([conv_st, xbc[:, None, :]], dim=1)      # [B,K,conv]
-        conv_out = torch.einsum("bkc,kc->bc", win, lp["conv_w"]) + lp["conv_b"]
+        conv_out = _einsum("bkc,kc->bc", win, lp["conv_w"]) + lp["conv_b"]
         xbc_t = F.silu(conv_out)
         new_conv = win[:, 1:, :]
         xs = xbc_t[..., :d_inner]
@@ -232,9 +241,9 @@ def decode_step(params: Params, cfg: ArchConfig, tokens: torch.Tensor, cache):
         a = -torch.exp(lp["a_log"])
         xh = xs.reshape(-1, n_heads, cfg.ssm_head_dim).float()
         decay = torch.exp(dt * a)                                # [B,H]
-        upd = torch.einsum("bh,bhp,bn->bhpn", dt, xh, b_in.float())
+        upd = _einsum("bh,bhp,bn->bhpn", dt, xh, b_in.float())
         new_ssd = decay[..., None, None] * ssd_st + upd
-        y = torch.einsum("bhpn,bn->bhp", new_ssd, c_in.float())
+        y = _einsum("bhpn,bn->bhp", new_ssd, c_in.float())
         y = y + lp["d_skip"][None, :, None] * xh
         y = y.reshape(-1, d_inner).to(xx.dtype)
         y = L.rms_norm(lp["gated_norm"], y * F.silu(z))

@@ -146,7 +146,9 @@ def block_forward(bp: Params, cfg: ArchConfig, kind: str, x: torch.Tensor,
     else:
         h = rglru_block(bp["rglru"], cfg, y)
     x = x + h
-    return x + L.swiglu(bp["mlp"], L.rms_norm(bp["mlp_norm"], x))
+    from repro_torch.distributed import hints
+    x = x + L.swiglu(bp["mlp"], L.rms_norm(bp["mlp_norm"], x))
+    return hints.constrain(x, "batch", "model", None)
 
 
 def _layout(cfg: ArchConfig):

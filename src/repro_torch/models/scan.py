@@ -3,8 +3,8 @@
 The reference runs a stack with ``jax.lax.scan`` unless ``unrolled()``
 is on (its dry-run probes); eager PyTorch has one way to run it, a
 Python loop over the leading ``[L]`` axis, so both settings run the
-same loop.  ``unrolled`` and ``unroll_active`` keep their names for the
-dry-run tooling still to port.
+same loop.  ``unrolled`` and ``unroll_active`` keep their names; the
+port's dry run needs neither, since its count sees every layer.
 """
 from __future__ import annotations
 

@@ -63,7 +63,10 @@ def _layer_fwd(lp: Params, x: torch.Tensor, cfg: ArchConfig,
         causal=True, window=cfg.attn_window, q_chunk=q_chunk,
     )
     x = x + h
-    return x + _mlp(lp, L.rms_norm(lp["mlp_norm"], x), cfg)
+    from repro_torch.distributed import hints
+    # sequence-shard the residual checkpoint (Megatron-style SP)
+    return hints.constrain(x + _mlp(lp, L.rms_norm(lp["mlp_norm"], x), cfg),
+                           "batch", "model", None)
 
 
 def head_weight(params: Params, cfg: ArchConfig) -> torch.Tensor:
@@ -107,7 +110,9 @@ def forward(
     """Full-sequence forward -> logits [B, S, V]."""
     x = forward_hidden(params, cfg, tokens, inputs_embeds,
                        q_chunk=q_chunk, remat=remat)
-    return x @ head_weight(params, cfg).T
+    from repro_torch.distributed import hints
+    return hints.constrain(x @ head_weight(params, cfg).T,
+                           "batch", None, "model")
 
 
 def init_cache(cfg: ArchConfig, batch: int, s_cache: int, dtype=torch.float32,
@@ -158,16 +163,20 @@ def chunked_ce_loss(x: torch.Tensor, head_w: torch.Tensor,
     sequence chunks, each chunk's logits recomputed in the backward pass.
     A sequence that is one chunk, or not a multiple of it, takes the
     full-logit path."""
+    from repro_torch.distributed import hints
+
     b, s, d = x.shape
     if s % chunk or s == chunk:
-        return ce_loss(x @ head_w.T, targets)
+        return ce_loss(hints.constrain(x @ head_w.T, "batch", None, "model"),
+                       targets)
     nc = s // chunk
     xs = x.reshape(b, nc, chunk, d).transpose(0, 1)
     ts = targets.reshape(b, nc, chunk).transpose(0, 1)
 
     def body(acc, inp):
         xc, tc = inp
-        logits = (xc @ head_w.T).float()
+        logits = hints.constrain(xc @ head_w.T, "batch", None,
+                                 "model").float()
         lse = torch.logsumexp(logits, dim=-1)
         tgt = torch.gather(logits, -1, tc.long()[..., None])[..., 0]
         return acc + torch.sum(lse - tgt), None

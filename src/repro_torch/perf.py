@@ -1,11 +1,10 @@
 """Performance-variant flags; port of ``repro/perf.py``.
 
 A process-wide configuration read where a step is built: the sharding
-rules (``fsdp_sp``) and ``launch.steps.make_serve_step``
-(``int8_weights``).  The reference's dry-run sets a variant, lowers, and
-compares roofline terms against the baseline; that tooling is not ported
-yet (ROADMAP.md queue 1 item 14c), so the port keeps the flags and their
-scope as they are.
+rules (``fsdp_sp``), ``distributed.hints`` (``fsdp_sp``,
+``seq_sharded_decode``) and ``launch.steps.make_serve_step``
+(``int8_weights``).  ``launch/hillclimb.py`` runs a dry-run cell under a
+variant and records its roofline terms beside the baseline's.
 """
 from __future__ import annotations
 

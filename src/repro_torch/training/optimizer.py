@@ -74,6 +74,45 @@ def adamw_init(params) -> AdamState:
                      v=_tree.tree_map(zeros, params))
 
 
+def adamw_leaf_update(grads, step: torch.Tensor, cfg: AdamWConfig,
+                      donate: bool = False):
+    """The update's scalars, from the whole gradient tree: returns
+    ``(upd, new step, metrics)`` where ``upd(g, m, v, p) -> (p, m, v)``
+    updates one leaf, or any block of one (every operation is
+    elementwise, so a block's update is the whole leaf's, bit for bit).
+    The scalars follow each leaf to its device."""
+    gnorm = global_norm(grads)
+    scale = (torch.clamp(cfg.clip_norm / (gnorm + 1e-9), max=1.0)
+             if cfg.clip_norm is not None else None)
+
+    step = step + 1
+    lr = schedule_fn(cfg)(step)
+    step_f = step.to(torch.float32)
+    b1c = 1.0 - torch.pow(cfg.b1, step_f)
+    b2c = 1.0 - torch.pow(cfg.b2, step_f)
+    on = {}
+
+    def upd(g, m, v, p):
+        if g.device not in on:
+            on[g.device] = [s if s is None else s.to(g.device)
+                            for s in (scale, lr, b1c, b2c)]
+        scale_, lr_, b1c_, b2c_ = on[g.device]
+        if scale_ is not None:    # global-norm clipping, one leaf at a time
+            g = g.mul_(scale_) if donate else g * scale_
+        g32 = g.to(torch.float32)
+        m_new = cfg.b1 * m + (1 - cfg.b1) * g32
+        v_new = cfg.b2 * v + (1 - cfg.b2) * torch.square(g32)
+        delta = (m_new / b1c_) / (torch.sqrt(v_new / b2c_) + cfg.eps)
+        if cfg.weight_decay:
+            delta = delta + cfg.weight_decay * p.to(torch.float32)
+        p_new = (p.to(torch.float32) - lr_ * delta).to(p.dtype)
+        if not donate:
+            return p_new, m_new, v_new
+        return p.copy_(p_new), m.copy_(m_new), v.copy_(v_new)
+
+    return upd, step, {"grad_norm": gnorm, "lr": lr}
+
+
 def adamw_update(grads, state: AdamState, params, cfg: AdamWConfig,
                  donate: bool = False):
     """Returns (new_params, new_state, metrics).
@@ -83,30 +122,7 @@ def adamw_update(grads, state: AdamState, params, cfg: AdamWConfig,
     returned, as the reference's jitted step donates its params and
     optimizer state: the old and the new state never coexist.  Every leaf
     takes the same arithmetic either way, so the two agree bit for bit."""
-    gnorm = global_norm(grads)
-    scale = (torch.clamp(cfg.clip_norm / (gnorm + 1e-9), max=1.0)
-             if cfg.clip_norm is not None else None)
-
-    step = state.step + 1
-    lr = schedule_fn(cfg)(step)
-    step_f = step.to(torch.float32)
-    b1c = 1.0 - torch.pow(cfg.b1, step_f)
-    b2c = 1.0 - torch.pow(cfg.b2, step_f)
-
-    def upd(g, m, v, p):
-        if scale is not None:     # global-norm clipping, one leaf at a time
-            g = g.mul_(scale) if donate else g * scale
-        g32 = g.to(torch.float32)
-        m_new = cfg.b1 * m + (1 - cfg.b1) * g32
-        v_new = cfg.b2 * v + (1 - cfg.b2) * torch.square(g32)
-        delta = (m_new / b1c) / (torch.sqrt(v_new / b2c) + cfg.eps)
-        if cfg.weight_decay:
-            delta = delta + cfg.weight_decay * p.to(torch.float32)
-        p_new = (p.to(torch.float32) - lr * delta).to(p.dtype)
-        if not donate:
-            return p_new, m_new, v_new
-        return p.copy_(p_new), m.copy_(m_new), v.copy_(v_new)
-
+    upd, step, metrics = adamw_leaf_update(grads, state.step, cfg, donate)
     # trees are matched by leaf path, whatever their dicts' key order
     g, m, v = (dict(_tree.leaves_with_path(t))
                for t in (grads, state.m, state.v))
@@ -116,5 +132,4 @@ def adamw_update(grads, state: AdamState, params, cfg: AdamWConfig,
             out[path] = upd(g[path], m[path], v[path], p)
     new = [_tree.map_with_path(lambda path, _: out[path][i], params)
            for i in range(3)]
-    return new[0], AdamState(step=step, m=new[1], v=new[2]), {
-        "grad_norm": gnorm, "lr": lr}
+    return new[0], AdamState(step=step, m=new[1], v=new[2]), metrics

@@ -930,3 +930,89 @@ def test_lm_stream_on_card(cuda):
     obs, exp = obs[exp > 0], exp[exp > 0]
     stat = float(((obs - exp) ** 2 / exp).sum())
     assert stat <= stats.chi2.ppf(1 - 1e-4, len(exp) - 1)
+
+
+def _zoo_train_state(device, name="qwen3-1.7b"):
+    from repro_torch.configs import get_arch
+    from repro_torch.models import api
+    from repro_torch.training.optimizer import adamw_init
+
+    cfg = get_arch(name).reduced()
+    params = api.init_params(cfg, torch.Generator(device).manual_seed(0),
+                             device=device)
+    batch = api.make_train_batch(cfg, torch.Generator(device).manual_seed(1),
+                                 8, 32)
+    return cfg, params, adamw_init(params), batch
+
+
+def _assert_zoo_trees_equal(got, want):
+    from repro_torch import _tree
+    from repro_torch.distributed.sharding import host_tree
+
+    for (path, a), b in zip(_tree.leaves_with_path(host_tree(got)),
+                            _tree.leaves(host_tree(want))):
+        assert torch.equal(a, b), path
+
+
+@pytest.mark.parametrize("name", ["qwen3-1.7b", "granite-moe-1b-a400m"])
+def test_sharded_zoo_train_step_on_logical_shards(cuda, name):
+    """Two logical shards of cuda:0 on a (1, 2) mesh (data size 1): three
+    sharded train steps are bit-equal to the one-device steps."""
+    from repro_torch.distributed.sharding import ShardedTensor
+    from repro_torch.launch import elastic
+    from repro_torch.launch.mesh import emulated_devices
+    from repro_torch.launch.steps import make_train_step
+    from repro_torch.training.optimizer import AdamWConfig
+
+    cfg, params, opt, batch = _zoo_train_state(cuda, name)
+    step = make_train_step(cfg, AdamWConfig(lr=1e-3), 32)
+    with emulated_devices(2):
+        mesh = elastic.best_mesh_for(2, cuda)
+    assert mesh.shape == {"data": 1, "model": 2}
+    sharded = tuple(elastic.reshard(t, mesh, cfg) for t in (params, opt))
+    one = (params, opt)
+    for _ in range(3):
+        *one, m1 = step(*one, batch)
+        *sharded, m2 = step(*sharded, batch)
+        assert torch.equal(m1["loss"], m2["loss"])
+    _assert_zoo_trees_equal(sharded, one)
+    leaf = sharded[0]["embed"]
+    assert isinstance(leaf, ShardedTensor)
+    assert all(s.device == torch.device("cuda", 0) for s in leaf.shards)
+
+
+def test_sharded_zoo_train_step_on_distinct_cards(cuda):
+    """With two cards, the (1, 2) mesh puts one shard on each; the step
+    gathers onto cuda:0, is bit-equal to the one-device step, and leaves
+    the current card as it was.  Then (2, 1): one data replica per
+    card."""
+    if torch.cuda.device_count() < 2:
+        pytest.skip("needs two NVIDIA GPUs")
+    from repro_torch.launch import elastic
+    from repro_torch.launch.steps import make_train_step
+    from repro_torch.training.optimizer import AdamWConfig
+
+    cfg, params, opt, batch = _zoo_train_state(cuda)
+    step = make_train_step(cfg, AdamWConfig(lr=1e-3), 32)
+    mesh = elastic.best_mesh_for(2, cuda)
+    assert mesh.devices == (torch.device("cuda", 0), torch.device("cuda", 1))
+    sharded = tuple(elastic.reshard(t, mesh, cfg) for t in (params, opt))
+    assert sharded[0]["embed"].shards[1].device == torch.device("cuda", 1)
+    one = (params, opt)
+    for _ in range(2):
+        *one, m1 = step(*one, batch)
+        *sharded, m2 = step(*sharded, batch)
+        assert torch.equal(m1["loss"], m2["loss"])
+    assert torch.cuda.current_device() == 0
+    _assert_zoo_trees_equal(sharded, one)
+    # two data replicas, one per card: the second computes its half of
+    # the batch on cuda:1; the losses agree with the one-device step's
+    from repro_torch.launch.mesh import compat_make_mesh
+
+    mesh = compat_make_mesh((2, 1), ("data", "model"), cuda)
+    assert mesh.devices == (torch.device("cuda", 0), torch.device("cuda", 1))
+    state = tuple(elastic.reshard(t, mesh, cfg) for t in one)
+    *one, m1 = step(*one, batch)
+    *state, m2 = step(*state, batch)
+    assert abs(float(m2["loss"]) - float(m1["loss"])) <= 1e-5 * abs(
+        float(m1["loss"]))

@@ -10,8 +10,9 @@ the params and AdamW trees (``abstract_params``/``abstract_opt_state``),
 ``batch_specs`` of the cell's batch equal the reference's
 ``PartitionSpec`` leaf for leaf.  The reference's meshes are
 ``AbstractMesh``es (its ``best_mesh_for`` builds one in place of a mesh
-over devices this host lacks).  Also ``n_params_of``, ``rescale_batch``
-and the placement of a tree on a one-device mesh.
+over devices this host lacks).  Also ``n_params_of``, ``rescale_batch``,
+the placement of a tree on a one-device mesh, and a shape-only mesh's
+refusal to hold one.
 """
 import functools
 import math
@@ -228,10 +229,19 @@ def test_one_device_mesh_places_every_leaf_whole():
 
 
 def test_placing_shards_on_several_devices_is_refused():
+    """Only a shape-only mesh refuses a tree: it has no device to hold
+    one.  The same mesh over 8 logical host devices places the leaf as 8
+    blocks (``tests/test_torch_distributed.py`` holds placement to the
+    rules)."""
     mesh = tel.best_mesh_for(8, "meta")
     params = {"layers": {"mlp": {"gate": {"w": torch.zeros(2, 32, 16)}}}}
-    with pytest.raises(NotImplementedError, match="item 10"):
+    with pytest.raises(ValueError, match="shape-only"):
         tel.reshard(params, mesh)
+    with tmesh.emulated_devices(8):
+        placed = tel.reshard(params, tel.best_mesh_for(8, "cpu"))
+    leaf = placed["layers"]["mlp"]["gate"]["w"]
+    assert isinstance(leaf, tsh.ShardedTensor)
+    assert [tuple(b.shape) for b in leaf.shards] == [(2, 4, 16)] * 8
 
 
 def test_meshes_over_missing_devices_raise():

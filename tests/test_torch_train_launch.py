@@ -15,6 +15,7 @@ on the CPU at ``.reduced()`` widths.
 - Every family trains through the launcher (vlm and audio through
   ``api.make_train_batch``, which still advance the data step).
 - Without ``--device cpu`` and without a card it exits naming the flag.
+- With several devices visible it trains on their mesh.
 """
 import math
 import re
@@ -129,10 +130,20 @@ def test_launcher_refuses_the_host_unless_asked(monkeypatch):
         tlaunch.main(["--arch", "qwen3-1.7b", "--reduced", "--steps", "1"])
 
 
-def test_launcher_refuses_several_cards(monkeypatch):
-    """With more than one card visible it names ROADMAP item 10 instead
-    of training on one of them."""
-    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
-    monkeypatch.setattr(torch.cuda, "device_count", lambda: 2)
-    with pytest.raises(SystemExit, match="item 10"):
-        tlaunch.main(["--arch", "qwen3-1.7b", "--reduced", "--steps", "1"])
+def test_launcher_refuses_several_cards(capsys):
+    """It no longer refuses several devices: with two visible (two logical
+    host devices, ``emulated_devices(2)``) it trains on the (1, 2) mesh,
+    its params and optimizer state placed as shards."""
+    from repro_torch.distributed.sharding import ShardedTensor
+    from repro_torch.launch.mesh import emulated_devices
+
+    with emulated_devices(2):
+        run = tlaunch.main(["--arch", "qwen3-1.7b", "--reduced", "--steps",
+                            "1", "--batch", "2", "--seq", "16", "--log-every",
+                            "1", "--device", "cpu"])
+    lines = _lines(capsys)
+    assert lines[0] == ("[train] arch=qwen3-1.7b mesh={'data': 1, "
+                        "'model': 2} devices=2")
+    assert _steps(lines) == [1] and math.isfinite(run.losses[1])
+    assert all(isinstance(x, ShardedTensor) for x in
+               _tree.leaves((run.params, run.opt_state)))
