@@ -24,8 +24,9 @@ Phases; any failure exits non-zero before a result line is printed:
    its plain PyTorch version on the card at the serving shapes of the
    paper's 2x1024 DeltaLSTM: the dense-mirror product ``torch.equal`` to
    its float64 plain version (any element that differs fails, printed
-   with its ulps) at B = 1, 16 and 32 on both layers, fp32 and int8
-   packs, each row equal to the same row alone; the fused IPU and HPE
+   with its ulps) at B = 1, 4, 8, 16 and 32 on both layers, fp32 and
+   int8 packs, 30% and 5% of the deltas fired, each row equal to the
+   same row alone; the fused IPU and HPE
    layer-step stages
    bit for bit (``torch.equal``, 12 of 16 slots active, state updated in
    place), the reference's call shapes at 1e-6 with exact fired counts,
@@ -215,6 +216,9 @@ TRAINED_ROUTES = ("auto", "scatter")
 # kernel is also held against its plain version there in phase 2
 SHARD_BATCHES = (CAPACITY // 2, CAPACITY // 4)
 MIRROR_BATCHES = (1, *sorted(SHARD_BATCHES), CAPACITY, 2 * CAPACITY)
+# the dense-mirror kernel's fired shares in phase 2: 30%, and the served
+# model's ~5% (the trained 2x1024 model's temporal sparsity is 0.955)
+MIRROR_SHARES = (0.3, 0.05)
 ZOO_FULL = ("qwen2-0.5b", "granite-moe-1b-a400m", "mamba2-130m",
             "seamless-m4t-medium")
 ZOO_DECODE_CHECKED = ("qwen2-0.5b", "mamba2-130m", "seamless-m4t-medium")
@@ -667,11 +671,14 @@ def ulp_report(torch, got, want):
 
 def mirror_checks(torch, params, am_cfg, seed: int):
     """The dense-mirror kernel on both layers' packed mirrors of the 2x1024
-    model (fp32 and int8 packs), ~30% of the deltas fired, at
-    ``MIRROR_BATCHES`` (B = 1, phase 9's shard batches 4 and 8, 16, 32): ``torch.equal`` to its plain float64 product on the card
-    (any element that differs fails the check, printed with its ulps),
-    and each row equal to the same row computed alone.  The main row is
-    layer 2, B=16, fp32: the "auto" route's product."""
+    model (fp32 and int8 packs), at each of ``MIRROR_SHARES`` of the
+    deltas fired (30%, and the served model's ~5%) and at
+    ``MIRROR_BATCHES`` (B = 1, phase 9's shard batches 4 and 8, 16, 32):
+    ``torch.equal`` to its plain float64 product on the card (any element
+    that differs fails the check, printed with its ulps), and each row
+    equal to the same row computed alone.  The main row is layer 2, B=16,
+    fp32 at 30% fired: the "auto" route's product; the same case at 5%
+    is printed beside it."""
     from repro_torch import serving as rt
     from repro_torch.core import QuantConfig
     from repro_torch.kernels import dense_mirror as dm
@@ -681,7 +688,9 @@ def mirror_checks(torch, params, am_cfg, seed: int):
         quant=quant)).layers for label, quant in (("fp32", None),
                                                   ("int8", QuantConfig()))}
     dev = packs["fp32"][0].w_dense_t.device
-    g = torch.Generator(device=dev).manual_seed(seed)
+    # one generator per share, so each share's draws stay as they are
+    gens = {share: torch.Generator(device=dev).manual_seed(seed + i)
+            for i, share in enumerate(MIRROR_SHARES)}
     cases = []
     for layer_no in (2, 1):
         for label, layers in packs.items():
@@ -692,60 +701,29 @@ def mirror_checks(torch, params, am_cfg, seed: int):
                   f"dense_mirror: the {label} pack's mirror is {wt.dtype}")
             scale = layer.scale if label == "int8" else None
             q, n = wt.shape
-            fired = torch.rand((max(MIRROR_BATCHES), q), generator=g,
-                               device=dev) < 0.3
-            ds_all = torch.where(fired, torch.randn(
-                fired.shape, generator=g, device=dev), 0.0)
-            alone = torch.cat([dm.dense_mirror(ds_all[i:i + 1], wt, scale)
-                               for i in range(ds_all.shape[0])])
-            for b in MIRROR_BATCHES:
-                ds = ds_all[:b].contiguous()
-                run = lambda: dm.dense_mirror(ds, wt, scale)  # noqa: E731
-                plain = lambda: dm.plain(ds, wt, scale)       # noqa: E731
-                got, want = run(), plain()
-                n_diff, ulps = ulp_report(torch, got, want)
-                name = (f"layer {layer_no} {label} B={b} Q={q} N={n}")
-                if n_diff:
-                    print(f"kernel dense_mirror [{name}]: {n_diff} of "
-                          f"{got.numel()} elements differ from the plain "
-                          f"version, by <= {ulps} ulp", flush=True)
-                check(n_diff == 0, f"dense_mirror {name}: {n_diff} elements "
-                                   f"differ from its plain version by <= "
-                                   f"{ulps} ulp")
-                check(torch.equal(got, alone[:b]),
-                      f"dense_mirror {name}: a row differs from the same "
-                      f"row computed alone")
-                # the work this data needs: the mirror rows of the columns
-                # fired in any row, each read once; a multiply-add per
-                # fired delta and output column
-                touched = int((ds != 0).any(0).sum())
-                n_bytes = (b * q * 4 + touched * n * wt.element_size()
-                           + b * n * 4)
-                n_ops = 2 * int((ds != 0).sum()) * n
-                bytes_ms = bound_ms(n_bytes)
-                ops_ms = n_ops / FP32_FLOPS_PER_S * 1e3
-                case = {
-                    "case": name, "max_abs_err": max_err(got, want),
-                    "ulp_diffs": n_diff,
-                    "ms": time_ms(torch, run),
-                    "kernel_device_ms": device_ms(torch, run,
-                                                  "dense_mirror_kernel"),
-                    "plain_ms": time_ms(torch, plain),
-                    "bytes": n_bytes, "ops": n_ops,
-                    "bound_ms": max(bytes_ms, ops_ms),
-                    "bound_by": "bytes" if bytes_ms >= ops_ms
-                                else "operations",
-                    "library_ms": None, "library_device_ms": None,
-                }
-                if label == "fp32":
-                    # cuBLAS's fp32 GEMM: not batch-invariant, never called
-                    # by the port
-                    library = lambda: ds @ wt              # noqa: E731
-                    case["library_ms"] = time_ms(torch, library)
-                    case["library_device_ms"] = device_ms(torch, library, "")
-                cases.append(case)
-    main = next(c for c in cases
-                if c["case"].startswith(f"layer 2 fp32 B={CAPACITY} "))
+            for share in MIRROR_SHARES:
+                g = gens[share]
+                fired = torch.rand((max(MIRROR_BATCHES), q), generator=g,
+                                   device=dev) < share
+                ds_all = torch.where(fired, torch.randn(
+                    fired.shape, generator=g, device=dev), 0.0)
+                alone = torch.cat([dm.dense_mirror(ds_all[i:i + 1], wt,
+                                                   scale)
+                                   for i in range(ds_all.shape[0])])
+                for b in MIRROR_BATCHES:
+                    cases.append(mirror_case(
+                        torch, ds_all[:b].contiguous(), wt, scale,
+                        alone[:b], f"layer {layer_no} {label} "
+                                   f"{round(share * 100)}% B={b} Q={q} "
+                                   f"N={n}", label == "fp32"))
+    main, served = (next(c for c in cases if c["case"].startswith(
+        f"layer 2 fp32 {round(share * 100)}% B={CAPACITY} "))
+        for share in MIRROR_SHARES)
+    print(f"kernel dense_mirror main [{main['case']}]: kernel_device_ms "
+          f"{main['kernel_device_ms']} bound_ms {main['bound_ms']:.6f} | "
+          f"[{served['case']}]: kernel_device_ms "
+          f"{served['kernel_device_ms']} bound_ms "
+          f"{served['bound_ms']:.6f}", flush=True)
     return {"dense_mirror": dict(
         main, route="cuda",
         source="src/repro_torch/kernels/csrc/spartus_kernels.cu",
@@ -753,6 +731,54 @@ def mirror_checks(torch, params, am_cfg, seed: int):
         note="replaces the XLA dot in delta_spmv_dense_topk_batch: a "
              "repair of the port, not the port of a TPU kernel",
         cases=cases)}
+
+
+def mirror_case(torch, ds, wt, scale, alone, name: str, library: bool):
+    """One dense-mirror case: the kernel ``torch.equal`` to its plain
+    version and, row by row, to ``alone``; its times, and its bound from
+    the work this data needs."""
+    from repro_torch.kernels import dense_mirror as dm
+
+    b, q = ds.shape
+    n = wt.shape[1]
+    run = lambda: dm.dense_mirror(ds, wt, scale)  # noqa: E731
+    plain = lambda: dm.plain(ds, wt, scale)       # noqa: E731
+    got, want = run(), plain()
+    n_diff, ulps = ulp_report(torch, got, want)
+    if n_diff:
+        print(f"kernel dense_mirror [{name}]: {n_diff} of {got.numel()} "
+              f"elements differ from the plain version, by <= {ulps} ulp",
+              flush=True)
+    check(n_diff == 0, f"dense_mirror {name}: {n_diff} elements differ "
+                       f"from its plain version by <= {ulps} ulp")
+    check(torch.equal(got, alone),
+          f"dense_mirror {name}: a row differs from the same row computed "
+          f"alone")
+    # the work this data needs: the mirror rows of the columns fired in
+    # any row, each read once; a multiply-add per fired delta and output
+    # column
+    touched = int((ds != 0).any(0).sum())
+    n_bytes = b * q * 4 + touched * n * wt.element_size() + b * n * 4
+    n_ops = 2 * int((ds != 0).sum()) * n
+    bytes_ms = bound_ms(n_bytes)
+    ops_ms = n_ops / FP32_FLOPS_PER_S * 1e3
+    case = {
+        "case": name, "max_abs_err": max_err(got, want),
+        "ulp_diffs": n_diff,
+        "ms": time_ms(torch, run),
+        "kernel_device_ms": device_ms(torch, run, "dense_mirror_kernel"),
+        "plain_ms": time_ms(torch, plain),
+        "bytes": n_bytes, "ops": n_ops,
+        "bound_ms": max(bytes_ms, ops_ms),
+        "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
+        "library_ms": None, "library_device_ms": None,
+    }
+    if library:
+        # cuBLAS's fp32 GEMM: not batch-invariant, never called by the port
+        gemm = lambda: ds @ wt                         # noqa: E731
+        case["library_ms"] = time_ms(torch, gemm)
+        case["library_device_ms"] = device_ms(torch, gemm, "")
+    return case
 
 
 # -- phase 3: serving at full width -----------------------------------------

@@ -732,156 +732,403 @@ int launch_stsp_spmv(int device, const void* val, const void* lidx,
 //           float nearest the exact sum barring a near-tie: the value a
 //           double GEMM (the plain version) gives, whatever its order.
 // Order:    the k-sum of every output element is a function of Q alone.
-//           k runs in chunks of kMirrorChunk; warp w sums k in [chunk +
-//           32w, chunk + 32w + 32) of every chunk, ascending, into its own
-//           double accumulator, and the block adds the warps' partials in
-//           warp order.  Neither B nor the rows sharing a launch enter
-//           it, so a session's row is bit-identical whatever pool it
-//           shares.  Rows are taken in groups of up to 16 (RB, chosen
-//           from B): a group only decides how many rows share one pass
-//           over the mirror, never a row's sum.  A k at which every row of
-//           the group has ds = 0 is skipped: its terms are +-0, which
-//           changes at most the sign of an exact zero.
-// Bound:    bytes for an fp32 mirror.  The mirror is read once per group
-//           of 16 rows: at layer 2 of the 2x1024 model (Q = 2048,
-//           N = 4096) 33.5 MB, ~0.010 ms at 3.35 TB/s, or 8.4 MB int8,
-//           ~0.0025 ms; B*Q*N multiply-adds (134 M at B = 16) are ~0.004
-//           ms at the fp32 rate and ~0.008 ms at the 34 TFLOP/s of fp64
-//           outside the tensor cores, which this kernel runs on.
+//           k runs in chunks of 256; warp w sums k in [chunk + 32w, chunk
+//           + 32w + 32) of every chunk, ascending, into one double
+//           accumulator per row, and the block adds the warps' partials in
+//           warp order, rounds once (__double2float_rn) and scales
+//           (__fmul_rn).  fma(+-0, w, acc) == acc for finite w, and acc is
+//           never -0 (it starts at +0, and round-to-nearest gives +0 for
+//           an exact cancellation), so a term whose delta is +-0 may be
+//           skipped or taken: either leaves every row's sequence of
+//           roundings as it was.  Neither B nor the other rows of a launch
+//           enter a row's sum, so a row is bit-identical whatever pool it
+//           shares, and to the design this one replaced.  (The mirror is
+//           finite: it holds weights.)
+// Bound:    bytes for the data, operations for the kernel.  The bytes:
+//           the mirror rows that some row of the launch fired, each read
+//           once; at layer 2 of the 2x1024 model (Q = 2048, N = 4096)
+//           with 30% of the deltas fired B = 16 touches every row, 33.5 MB
+//           fp32, ~0.010 ms at 3.35 TB/s (int8 8.4 MB, ~0.0026); at the
+//           served model's ~5%, B = 1 touches ~100 rows (~0.0005 ms) and
+//           B = 16 ~56% of them.  The kernel's limit is the compute beside
+//           the bytes: every fp64 FMA takes its delta as a broadcast from
+//           shared memory (half a load a row and k in the dense pass, a
+//           load and a mirror load a term in the walk), and those loads
+//           and the FMAs, not the mirror's bytes, set the time from ~10%
+//           fired at B = 16 upwards.
 // Design:   one block of 8 warps per 32 output columns (a lane per
-//           column: a warp's mirror load is one 128-byte row segment at
-//           fp32, one 32-byte sector at int8), so N = 4096 gives 128
-//           blocks for 132 SMs.  The warps run apart until the final
-//           combine: lane i of a warp loads the group's ds at k = slice
-//           start + i (RB coalesced loads), widens them into the warp's
-//           own shared region as [k][row] doubles (padded against bank
-//           conflicts) and ballots which k fired; the warp then reads
-//           them back as double2 broadcasts, one per two FMAs.  Each
-//           warp loads the next slice's ds and mirror (32 loads) before
-//           it computes the current one, so the loads of one slice fly
-//           under the FMAs of the last.  Measured on an H100
-//           (tools/mirror_ab.py), Q = 2048, B = 16: 0.029 ms, against
-//           0.055 for a first version whose block staged each chunk
-//           together between two barriers; dropping the zero skip made
-//           B = 16 slower (0.035) and B = 1 faster, and 16 warps a block
-//           0.045.  At 9 TFLOP/s of fp64 the FMAs, not the mirror's
-//           bytes, hold it; the fp64 tensor cores (DMMA) and TMA are for
-//           a later change.
+//           column), so N = 4096 gives 128 blocks for 132 SMs, with up to
+//           32 rows a pass (RB) in registers.  Each warp runs its own
+//           pipeline over its slices through a ring of 2 to 4 slots in
+//           shared memory (as many as fit in a block's 227 KB).  To
+//           stage a slice it ballots each row's fired k (the lanes hold
+//           the rows' deltas, loaded two slices ahead), keeps the masks,
+//           writes the widened deltas ([k][row] doubles), and cp.asyncs in
+//           16-byte pieces only the mirror row segments of the k some row
+//           fired (128 bytes fp32, 32 int8), so the next slices' loads fly
+//           under this one's FMAs.  A slice is then computed one of two
+//           ways, chosen when it is staged from how many of its k fired in
+//           any row: the walk takes the rows in pairs and visits each
+//           row's own fired k in ascending order (bit-reversed masks,
+//           FLO), one FMA per fired term and none for a zero, a row out
+//           of terms reading a zero row; the dense pass runs all 32 k
+//           with every row, two rows' deltas a 16-byte broadcast, the
+//           zeros included (a k no row fired meets zero deltas and a
+//           finite stale value, the ring being zeroed at the start).
+//           Past 32 rows the pass repeats, each reading the mirror rows
+//           its own rows fired: the widened deltas (264 bytes a row and
+//           slice) fill shared memory at 32.
+// Measured: tools/kernel_ab.py --kernel dense_mirror against the design
+//           it replaced, in one call (NVIDIA H100 80GB HBM3, 700 W; device
+//           ms, layer 2, fp32 / int8): 30% fired B = 1 0.0088 / 0.0070
+//           (was 0.0148 / 0.0148), B = 16 0.0289 / 0.0273 (0.0299 /
+//           0.0296), B = 32 0.0512 / 0.0496 (0.0586 / 0.0580); 5% fired
+//           B = 1 0.0064 / 0.0051 (0.0148 / 0.0147), B = 16 0.0213 /
+//           0.0195 (0.0232 / 0.0230), B = 32 0.0345 / 0.0324 (0.0446 /
+//           0.0443).  -Xptxas -v: 84 to 254 registers, no spills (with
+//           the launch bound's one block an SM; without it ptxas capped
+//           RB = 2, 4 and 8 at 128 and spilled 48-112 bytes, and int8 at
+//           B = 8 took 0.0254 against 0.0163).  On the way: the walk
+//           alone, one row at a time with 4-byte cp.async per live row
+//           (an ffs loop), 0.099 at B = 16 / 30% (chains of shared loads
+//           and FMAs that 8 warps an SM do not hide); the copies alone cost 0.024 of it, 0.014 as
+//           16-byte pieces on a fixed map; the walk four rows at a time
+//           0.054 against 0.029 for the dense pass (0.021 and 0.028 at
+//           5%), so each slice takes the cheaper; 16 warps an SM (two a
+//           slice, each half the rows, a named barrier a step) 0.035, so
+//           the compute is throughput-bound; the walk from per-row index
+//           lists built at staging (no FLO a term) 0.047 at 30% and no
+//           faster at 5%; widening floats by bit moves (no F2F) and
+//           holding the slice's mirror values in registers changed
+//           nothing.  The fp64 tensor cores would reorder each k-step's
+//           sums.
 // ---------------------------------------------------------------------------
 constexpr int kMirrorWarps = 8;
 constexpr int kMirrorThreads = 32 * kMirrorWarps;
-constexpr int kMirrorSlice = 32;                          // k per warp
-constexpr int kMirrorChunk = kMirrorWarps * kMirrorSlice;  // k per chunk
-constexpr int kMirrorMaxRows = 16;
+constexpr int kMirrorSlice = 32;  // k a warp takes of each 256
+constexpr int kMirrorMaxRows = 32;
+// a slot's k rows: the slice's 32, and a zero row (k = 32) that stands
+// for "no term" in the walk
+constexpr int kMirrorSlotRows = kMirrorSlice + 1;
+constexpr size_t kMirrorSmemBudget = 232448;  // all of an H100 block's
+// the walk visits rows in pairs
+constexpr int kMirrorWalkRows = 2;
+// the walk takes a slice whose union of fired k over the pass's RB rows
+// (a k past Q counted as fired) is at most mirror_walk_live(RB) of its
+// 32, the dense pass the others: where the two measured even, ~10% of
+// the deltas fired at B = 16 and ~23% at B = 1
+__host__ __device__ constexpr int mirror_walk_live(int rb) {
+  return rb <= 1 ? 7 : rb <= 2 ? 12 : rb <= 4 ? 18 : rb <= 8 ? 23
+         : rb <= 16 ? 26 : 31;
+}
 
-// doubles per k in a warp's staged ds: RB rows, padded by two where the
-// rows are 4 or more, so that lanes writing consecutive k spread over
+// doubles per k of a slot's widened deltas: RB rows, padded by two where
+// the rows are 4 or more, so that lanes writing consecutive k spread over
 // eight bank pairs; even, so that each row pair stays 16-byte aligned
 __host__ __device__ constexpr int mirror_stride(int rb) {
   return rb >= 4 ? rb + 2 : rb;
 }
 
-// One slice of the group: the ds of lane i's k (RB rows) and the mirror
-// at the slice's 32 k in this lane's column, zero past B, Q or N.
-template <typename W, int RB>
-struct MirrorSlice {
-  float ds[RB];
-  W w[kMirrorSlice];
+// shared bytes of one warp's ring of `depth` slots: the mirror segments
+// [33 k][32 columns], the widened deltas [33 k][stride], and the row
+// masks [RB] and the pass to take of each slot
+__host__ __device__ constexpr size_t mirror_warp_bytes(size_t w_bytes,
+                                                       int rb, int depth) {
+  return (static_cast<size_t>(depth) *
+              (kMirrorSlotRows * 32 * w_bytes +
+               kMirrorSlotRows * mirror_stride(rb) * sizeof(double) +
+               (rb + 1) * sizeof(unsigned)) +
+          15) / 16 * 16;
+}
 
-  __device__ __forceinline__ void load(const float* __restrict__ ds_in,
-                                       const W* __restrict__ wt, int b0,
-                                       int B, int Q, int N, int k0, int j,
-                                       int lane) {
-    const int k = k0 + lane;
-#pragma unroll
-    for (int r = 0; r < RB; ++r) {
-      ds[r] = (b0 + r < B && k < Q)
-                  ? ds_in[static_cast<size_t>(b0 + r) * Q + k]
-                  : 0.0f;
-    }
-#pragma unroll
-    for (int i = 0; i < kMirrorSlice; ++i) {
-      w[i] = (j < N && k0 + i < Q) ? wt[static_cast<size_t>(k0 + i) * N + j]
-                                   : W(0);
-    }
-  }
-};
+// the deepest ring (4, 3 or 2 slots) whose 8 warps fit the budget
+__host__ __device__ constexpr int mirror_depth(size_t w_bytes, int rb) {
+  return kMirrorWarps * mirror_warp_bytes(w_bytes, rb, 4) <=
+                 kMirrorSmemBudget
+             ? 4
+             : kMirrorWarps * mirror_warp_bytes(w_bytes, rb, 3) <=
+                       kMirrorSmemBudget
+                   ? 3
+                   : 2;
+}
 
-// RB rows per group (a power of two <= 16); grid ceil(N / 32),
-// kMirrorThreads threads.
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// a mirror value as a double, exactly: F2F for a float; an int8 through
+// the 2^52 + 2^31 bias (one add on the fp64 pipe instead of a conversion)
+__device__ __forceinline__ double mirror_widen(float v) {
+  return static_cast<double>(v);
+}
+__device__ __forceinline__ double mirror_widen(int8_t v) {
+  const unsigned biased = static_cast<unsigned>(static_cast<int>(v)) ^
+                          0x80000000u;
+  return __hiloint2double(0x43300000, static_cast<int>(biased)) -
+         4503601774854144.0;
+}
+
+// RB rows per pass (a power of two <= 32); grid ceil(N / 32),
+// kMirrorThreads threads, 8 * mirror_warp_bytes(sizeof(W), RB, depth)
+// bytes of dynamic shared memory.  unit: the widest cp.async (16 or 4
+// bytes) that every row segment of the mirror allows, 0 for byte copies.
 template <typename W, int RB>
-__global__ void __launch_bounds__(kMirrorThreads)
+__global__ void __launch_bounds__(kMirrorThreads, 1)  // one block an SM
     dense_mirror_kernel(const float* __restrict__ ds,
                         const W* __restrict__ wt,
                         const float* __restrict__ scale,
-                        float* __restrict__ y, int B, int Q, int N) {
+                        float* __restrict__ y, int B, int Q, int N,
+                        int unit) {
+  constexpr int kDepth = mirror_depth(sizeof(W), RB);
   constexpr int kStride = mirror_stride(RB);
-  constexpr int kRegion = kMirrorSlice * kStride;  // doubles per warp
-  static_assert(kRegion >= RB * 32, "the partials reuse a warp's region");
-  // each warp's staged ds; at the end, the warps' partials [warp][RB][32]
-  __shared__ __align__(16) double smem[kMirrorWarps * kRegion];
+  constexpr int kSeg = kMirrorSlotRows * 32;        // mirror values a slot
+  constexpr int kDsd = kMirrorSlotRows * kStride;   // deltas a slot
+  constexpr int kWalk = RB < kMirrorWalkRows ? RB : kMirrorWalkRows;
+  constexpr size_t kWarpBytes = mirror_warp_bytes(sizeof(W), RB, kDepth);
+  static_assert(kMirrorWarps * kWarpBytes <= kMirrorSmemBudget,
+                "the ring fits a block's shared memory");
+  static_assert(RB * 32 * sizeof(double) <= kWarpBytes,
+                "the partials [warp][RB][32] lie over the ring");
+  extern __shared__ __align__(16) unsigned char mirror_smem[];
   const int warp = threadIdx.x >> 5;
   const int lane = threadIdx.x & 31;
-  const int j = blockIdx.x * 32 + lane;
-  double* const mine = smem + warp * kRegion;
+  const int j0 = blockIdx.x * 32;
+  const int cols = N - j0;  // >= 1 columns of this block
+  unsigned char* const base = mirror_smem + warp * kWarpBytes;
+  W* const mir = reinterpret_cast<W*>(base);
+  double* const dsd =
+      reinterpret_cast<double*>(base + kDepth * kSeg * sizeof(W));
+  unsigned* const msk = reinterpret_cast<unsigned*>(dsd + kDepth * kDsd);
+  // this warp's slices: slice s covers k in [32 (8 s + warp), +32)
+  const int n_slices = (Q + kMirrorSlice - 1) / kMirrorSlice;
+  const int n = n_slices > warp
+                    ? (n_slices - warp + kMirrorWarps - 1) / kMirrorWarps
+                    : 0;
+
   for (int b0 = 0; b0 < B; b0 += RB) {
+    // a zeroed ring (the partials of the last pass lie over it): the
+    // zero rows at k = 32 and, in the mirror segments a slice did not
+    // copy, finite values only
+    for (size_t o = lane * 16; o + 16 <= kWarpBytes; o += 32 * 16) {
+      *reinterpret_cast<int4*>(base + o) = make_int4(0, 0, 0, 0);
+    }
+    __syncwarp();
+    // lane i's deltas at k = slice start + i, RB rows, zero past B or Q
+    auto load = [&](float (&v)[RB], int s) {
+      const int k = kMirrorSlice * (kMirrorWarps * s + warp) + lane;
+#pragma unroll
+      for (int r = 0; r < RB; ++r) {
+        v[r] = (b0 + r < B && k < Q)
+                   ? ds[static_cast<size_t>(b0 + r) * Q + k]
+                   : 0.0f;
+      }
+    };
+    // the masks (bit-reversed: bit 31 is the slice's first k) and
+    // widened deltas of slice s into its ring slot, and cp.async of the
+    // mirror segments of the k some row fired
+    auto stage = [&](const float (&v)[RB], int s) {
+      const int slot = s % kDepth;
+      const int k0 = kMirrorSlice * (kMirrorWarps * s + warp);
+      double* const d = dsd + slot * kDsd + lane * kStride;
+      unsigned live = 0;
+#pragma unroll
+      for (int r = 0; r < RB; ++r) {
+        const unsigned m = __ballot_sync(0xffffffffu, v[r] != 0.0f);
+        live |= m;
+        if (lane == 0) msk[slot * (RB + 1) + r] = __brev(m);
+      }
+      if (lane == 0) {
+        const int past = k0 + kMirrorSlice > Q ? k0 + kMirrorSlice - Q : 0;
+        msk[slot * (RB + 1) + RB] =
+            __popc(live) + past <= mirror_walk_live(RB);
+      }
+      if constexpr (RB == 1) {
+        d[0] = live ? mirror_widen(v[0]) : 0.0;
+      } else {
+#pragma unroll
+        for (int r = 0; r < RB; r += 2) {
+          *reinterpret_cast<double2*>(d + r) =
+              make_double2(mirror_widen(v[r]), mirror_widen(v[r + 1]));
+        }
+      }
+      W* const dst = mir + slot * kSeg;
+      if (unit == 16) {
+        // 16-byte pieces on a fixed map: kLanes lanes a row segment, row
+        // t * kRows + lane / kLanes in pass t, copied if the row is live
+        constexpr int kLanes = 32 * static_cast<int>(sizeof(W)) / 16;
+        constexpr int kRows = 32 / kLanes;
+        constexpr int kPer = 16 / static_cast<int>(sizeof(W));
+        const int col = (lane % kLanes) * kPer;
+#pragma unroll
+        for (int t = 0; t < kMirrorSlice / kRows; ++t) {
+          const int i = t * kRows + lane / kLanes;
+          if (((live >> i) & 1u) && col < cols) {
+            cp_async(dst + i * 32 + col,
+                     wt + static_cast<size_t>(k0 + i) * N + j0 + col, 16);
+          }
+        }
+        return;
+      }
+      while (live) {
+        const int i = __ffs(live) - 1;
+        live &= live - 1;
+        const W* const src = wt + static_cast<size_t>(k0 + i) * N + j0;
+        if (unit == 4) {
+          constexpr int kPer = 4 / static_cast<int>(sizeof(W));
+          if (lane * kPer < 32 && lane * kPer < cols) {
+            cp_async(dst + i * 32 + lane * kPer, src + lane * kPer, 4);
+          }
+        } else if (lane < cols) {  // a plain byte copy, seen after the
+          dst[i * 32 + lane] = src[lane];  // __syncwarp before the walk
+        }
+      }
+    };
+
     double acc[RB];
 #pragma unroll
     for (int r = 0; r < RB; ++r) acc[r] = 0.0;
-    // warp w sums k in [kc + 32w, kc + 32w + 32) for kc = 0, 256, ...
-    MirrorSlice<W, RB> cur;
-    int k0 = warp * kMirrorSlice;
-    cur.load(ds, wt, b0, B, Q, N, k0, j, lane);
-    for (; k0 < Q; k0 += kMirrorChunk) {
-      MirrorSlice<W, RB> next;
-      next.load(ds, wt, b0, B, Q, N, k0 + kMirrorChunk, j, lane);
-      bool fired = false;
+    // the FMAs of slice s, in each row's order; either pass gives the same
+    // bits (the dense one's extra terms are +-0 times finite values)
+    auto compute = [&](int s) {
+      const int slot = s % kDepth;
+      const W* const w = mir + slot * kSeg + lane;
+      const double* const d = dsd + slot * kDsd;
+      if (msk[slot * (RB + 1) + RB]) {
+        // each row's own fired k, ascending, kWalk rows at a time; a row
+        // out of terms reads the zero row (k = 32): fma(0, 0, a) == a
 #pragma unroll
-      for (int r = 0; r < RB; ++r) {
-        mine[lane * kStride + r] = static_cast<double>(cur.ds[r]);
-        fired |= cur.ds[r] != 0.0f;
-      }
-      // bit i: some row of the group fired at k0 + i
-      const unsigned live = __ballot_sync(0xffffffffu, fired);
-      __syncwarp();
+        for (int g = 0; g < RB; g += kWalk) {
+          unsigned m[kWalk];
+          double a[kWalk];
 #pragma unroll
-      for (int i = 0; i < kMirrorSlice; ++i) {
-        if (!((live >> i) & 1u)) continue;  // uniform across the warp
-        const double wv = static_cast<double>(cur.w[i]);
-        const double* d = mine + i * kStride;
-        if constexpr (RB == 1) {
-          acc[0] = __fma_rn(d[0], wv, acc[0]);
-        } else {
+          for (int p = 0; p < kWalk; ++p) {
+            m[p] = msk[slot * (RB + 1) + g + p];
+            a[p] = acc[g + p];
+          }
+          for (;;) {
+            unsigned any = 0;
 #pragma unroll
-          for (int r = 0; r < RB; r += 2) {
-            const double2 p = *reinterpret_cast<const double2*>(d + r);
-            acc[r] = __fma_rn(p.x, wv, acc[r]);
-            acc[r + 1] = __fma_rn(p.y, wv, acc[r + 1]);
+            for (int p = 0; p < kWalk; ++p) any |= m[p];
+            if (!any) break;
+            int i[kWalk];
+            double dv[kWalk], wv[kWalk];
+#pragma unroll
+            for (int p = 0; p < kWalk; ++p) {
+              i[p] = __clz(m[p]);  // 32 once m[p] is empty
+              m[p] &= __funnelshift_rc(0x7fffffffu, 0u, i[p]);
+            }
+#pragma unroll
+            for (int p = 0; p < kWalk; ++p) {
+              dv[p] = d[i[p] * kStride + g + p];
+              wv[p] = mirror_widen(w[i[p] * 32]);
+            }
+#pragma unroll
+            for (int p = 0; p < kWalk; ++p) {
+              a[p] = __fma_rn(dv[p], wv[p], a[p]);
+            }
+          }
+#pragma unroll
+          for (int p = 0; p < kWalk; ++p) acc[g + p] = a[p];
+        }
+      } else {
+        // every k of the slice, ascending; all rows, the zeros included
+        // (a k no row fired multiplies zeros by a finite stale value)
+#pragma unroll 8
+        for (int i = 0; i < kMirrorSlice; ++i) {
+          const double wv = mirror_widen(w[i * 32]);
+          const double* const di = d + i * kStride;
+          if constexpr (RB == 1) {
+            acc[0] = __fma_rn(di[0], wv, acc[0]);
+          } else {
+#pragma unroll
+            for (int r = 0; r < RB; r += 2) {
+              const double2 p = *reinterpret_cast<const double2*>(di + r);
+              acc[r] = __fma_rn(p.x, wv, acc[r]);
+              acc[r + 1] = __fma_rn(p.y, wv, acc[r + 1]);
+            }
           }
         }
       }
-      __syncwarp();  // the reads are done before the next slice's writes
-      cur = next;
-    }
-    __syncthreads();  // the previous group's combine has read every region
+    };
+    // one step: stage slice s + depth - 1 from v, load v with the deltas
+    // of slice s + depth + 1 (two steps ahead), compute slice s
+    auto step = [&](float (&v)[RB], int s) {
+      if (s + kDepth - 1 < n) stage(v, s + kDepth - 1);
+      cp_async_commit();
+      if (s + kDepth + 1 < n) load(v, s + kDepth + 1);
+      cp_async_wait<kDepth - 1>();  // this lane's copies of slice s landed
+      __syncwarp();                 // and every lane's
+      compute(s);
+      __syncwarp();  // slice s is read before its slot is staged again
+    };
+
+    {
+      float first[kDepth - 1][RB];
 #pragma unroll
-    for (int r = 0; r < RB; ++r) smem[(warp * RB + r) * 32 + lane] = acc[r];
+      for (int s = 0; s < kDepth - 1; ++s) {
+        if (s < n) load(first[s], s);
+      }
+#pragma unroll
+      for (int s = 0; s < kDepth - 1; ++s) {
+        if (s < n) stage(first[s], s);
+        cp_async_commit();
+      }
+    }
+    // the deltas of the next two slices to stage, in turns
+    float even[RB], odd[RB];
+    if (kDepth - 1 < n) load(even, kDepth - 1);
+    if (kDepth < n) load(odd, kDepth);
+    for (int s = 0; s < n; s += 2) {
+      step(even, s);
+      if (s + 1 < n) step(odd, s + 1);
+    }
+    cp_async_wait<0>();
+    __syncthreads();  // every warp's walk is done: the ring is free
+    double* const part = reinterpret_cast<double*>(mirror_smem);
+#pragma unroll
+    for (int r = 0; r < RB; ++r) part[(warp * RB + r) * 32 + lane] = acc[r];
     __syncthreads();
     for (int e = threadIdx.x; e < RB * 32; e += kMirrorThreads) {
       const int r = e / 32;
       const int b = b0 + r;
-      const int jj = blockIdx.x * 32 + (e & 31);
+      const int jj = j0 + (e & 31);
       if (b >= B || jj >= N) continue;
-      double sum = smem[r * 32 + (e & 31)];
+      double sum = part[r * 32 + (e & 31)];
       for (int w = 1; w < kMirrorWarps; ++w) {
-        sum += smem[(w * RB + r) * 32 + (e & 31)];
+        sum += part[(w * RB + r) * 32 + (e & 31)];
       }
       float v = __double2float_rn(sum);
       if (scale != nullptr) v = __fmul_rn(v, *scale);
       y[static_cast<size_t>(b) * N + jj] = v;
     }
-    __syncthreads();  // the combine is done before the next group stages
+    __syncthreads();  // the combine has read the partials
   }
+}
+
+template <typename W, int RB>
+cudaError_t run_dense_mirror(int device, const float* ds, const W* wt,
+                             const float* scale, float* y, int B, int Q,
+                             int N, int unit, cudaStream_t stream) {
+  auto kernel = dense_mirror_kernel<W, RB>;
+  const size_t smem = kMirrorWarps * mirror_warp_bytes(
+                                         sizeof(W), RB,
+                                         mirror_depth(sizeof(W), RB));
+  if (smem > 48 * 1024) {
+    // opt in once per device and instantiation
+    static bool opted[kMaxDevices] = {};
+    if (device < 0 || device >= kMaxDevices || !opted[device]) {
+      cudaError_t err = cudaFuncSetAttribute(
+          kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+          static_cast<int>(smem));
+      if (err != cudaSuccess) return err;
+      if (device >= 0 && device < kMaxDevices) opted[device] = true;
+    }
+  }
+  const dim3 grid((N + 31) / 32);
+  kernel<<<grid, kMirrorThreads, smem, stream>>>(ds, wt, scale, y, B, Q, N,
+                                                 unit);
+  return cudaGetLastError();
 }
 
 template <typename W>
@@ -896,19 +1143,25 @@ int launch_dense_mirror(int device, const float* ds, const W* wt,
   }
   if (B == 0 || N == 0) return 0;
   const int rows = B < kMirrorMaxRows ? B : kMirrorMaxRows;
-  const dim3 grid((N + 31) / 32);
+  // the widest cp.async every row segment allows (16 or 4 bytes), else
+  // plain byte copies (0)
+  const uintptr_t a = reinterpret_cast<uintptr_t>(wt);
+  const size_t row = static_cast<size_t>(N) * sizeof(W);
+  const int unit = row % 16 == 0 && a % 16 == 0 ? 16
+                   : row % 4 == 0 && a % 4 == 0 ? 4
+                                                : 0;
   const auto st = static_cast<cudaStream_t>(stream);
 #define MIRROR_RUN(RR)                                                      \
   if (rows <= RR) {                                                         \
-    dense_mirror_kernel<W, RR>                                              \
-        <<<grid, kMirrorThreads, 0, st>>>(ds, wt, scale, y, B, Q, N);       \
-    return static_cast<int>(cudaGetLastError());                            \
+    return static_cast<int>(run_dense_mirror<W, RR>(                        \
+        device, ds, wt, scale, y, B, Q, N, unit, st));                     \
   }
   MIRROR_RUN(1)
   MIRROR_RUN(2)
   MIRROR_RUN(4)
   MIRROR_RUN(8)
   MIRROR_RUN(16)
+  MIRROR_RUN(32)
 #undef MIRROR_RUN
   return static_cast<int>(cudaErrorInvalidValue);
 }

@@ -266,27 +266,38 @@ def _ulp_report(got, want):
         f"{int(diff.abs().max())} ulp"
 
 
-@pytest.mark.parametrize("q", [1147, 2048])
-@pytest.mark.parametrize("payload", ["fp32", "int8"])
-def test_dense_mirror_kernel_equals_plain(cuda, q, payload):
-    """The dense-mirror kernel at the 2x1024 model's layer shapes (Q =
-    D+H, N = 4H = 4096), ~30% of the deltas fired, equals its plain
-    float64 product on the card and on the host at B = 1, 16 and 32, and
-    each row equals the same row computed alone."""
-    n = 4096
-    g = _gen(q)
-    fired = torch.rand((32, q), generator=g) < 0.3
-    ds = torch.where(fired, torch.randn((32, q), generator=g), 0.0)
+MIRROR_ROWS = (1, 4, 8, 16, 24, 32, 48)
+
+
+def _mirror_case(q, payload, fired_share, rows=max(MIRROR_ROWS), n=4096):
+    """Seeded deltas [rows, q] with ``fired_share`` of them nonzero, and a
+    mirror [q, n] (fp32, or int8 with its scale)."""
+    g = _gen(q if fired_share == 0.3 else q + 5)
+    fired = torch.rand((rows, q), generator=g) < fired_share
+    ds = torch.where(fired, torch.randn((rows, q), generator=g), 0.0)
     wt = 0.05 * torch.randn((q, n), generator=g)
     scale = None
     if payload == "int8":
         scale = torch.tensor(2.0 ** -7)
         wt = torch.clamp(torch.round(wt / scale), -127, 127).to(torch.int8)
+    return ds, wt, scale
+
+
+@pytest.mark.parametrize("fired_share", [0.05, 0.3])
+@pytest.mark.parametrize("q", [1147, 2048])
+@pytest.mark.parametrize("payload", ["fp32", "int8"])
+def test_dense_mirror_kernel_equals_plain(cuda, q, payload, fired_share):
+    """The dense-mirror kernel at the 2x1024 model's layer shapes (Q =
+    D+H, N = 4H = 4096), 5% (the served model's share) and 30% of the
+    deltas fired, equals its plain float64 product on the card and on the
+    host at B = 1, 4, 8, 16, 24, 32 and 48 (past one pass of rows), and
+    each row equals the same row computed alone."""
+    ds, wt, scale = _mirror_case(q, payload, fired_share)
     d_wt = wt.to(cuda)
     d_scale = None if scale is None else scale.to(cuda)
     alone = [dm.dense_mirror(ds[i:i + 1].to(cuda), d_wt, d_scale).cpu()
-             for i in range(32)]
-    for b in (1, 16, 32):
+             for i in range(ds.shape[0])]
+    for b in MIRROR_ROWS:
         before = dm.KERNEL.launches
         got = dm.dense_mirror(ds[:b].to(cuda), d_wt, d_scale)
         assert dm.KERNEL.launches == before + 1
@@ -296,9 +307,34 @@ def test_dense_mirror_kernel_equals_plain(cuda, q, payload):
         assert torch.equal(got.cpu(), torch.cat(alone[:b]))
 
 
+@pytest.mark.parametrize("payload", ["fp32", "int8"])
+def test_dense_mirror_rows_do_not_depend_on_their_neighbours(cuda, payload):
+    """A row's output is bit-identical whatever rows share its launch:
+    the rows permuted, and one row among 15 neighbours that fire exactly
+    the k it does not, each equal the row computed alone."""
+    ds, wt, scale = _mirror_case(2048, payload, 0.05, rows=16)
+    d_wt = wt.to(cuda)
+    d_scale = None if scale is None else scale.to(cuda)
+    alone = torch.cat([dm.dense_mirror(ds[i:i + 1].to(cuda), d_wt,
+                                       d_scale).cpu() for i in range(16)])
+    perm = torch.randperm(16, generator=_gen(5))
+    got = dm.dense_mirror(ds[perm].to(cuda), d_wt, d_scale).cpu()
+    assert torch.equal(got, alone[perm])
+    row = ds[3]
+    others = torch.randn((15, 2048), generator=_gen(6))
+    others[:, row != 0] = 0.0           # fire every k the row does not
+    mixed = torch.cat([others[:7], row[None], others[7:]])
+    got = dm.dense_mirror(mixed.to(cuda), d_wt, d_scale).cpu()
+    assert torch.equal(got[7], alone[3])
+    assert torch.equal(got, dm.plain(mixed, wt, scale))
+
+
 def test_dense_mirror_kernel_edges(cuda):
     """Ragged shapes (Q and N off the kernel's tiles), a row group of 3,
-    all-zero rows and a batch beyond one row group."""
+    all-zero rows and a batch beyond one row group; a launch whose every
+    row is zero; a row that alone fires, at the last k of a ragged slice;
+    an int8 mirror whose rows copy 4 bytes at a time (N = 96) and byte by
+    byte (N = 50)."""
     g = _gen(7)
     for b, q, n in ((3, 37, 50), (17, 300, 96), (1, 0, 64), (5, 64, 1)):
         ds = torch.randn((b, q), generator=g)
@@ -307,6 +343,24 @@ def test_dense_mirror_kernel_edges(cuda):
         wt = torch.randn((q, n), generator=g)
         got = dm.dense_mirror(ds.to(cuda), wt.to(cuda))
         assert torch.equal(got.cpu(), dm.plain(ds, wt))
+    wt = torch.randn((300, 96), generator=g)
+    zero = torch.zeros((5, 300))
+    got = dm.dense_mirror(zero.to(cuda), wt.to(cuda))
+    assert torch.equal(got.cpu(), dm.plain(zero, wt))
+    lone = torch.zeros((5, 300))
+    lone[2, 299] = 1.5                  # the last k of slice 9 (12 wide)
+    got = dm.dense_mirror(lone.to(cuda), wt.to(cuda)).cpu()
+    assert torch.equal(got, dm.plain(lone, wt))
+    assert torch.equal(got[2], dm.dense_mirror(lone[2:3].to(cuda),
+                                               wt.to(cuda)).cpu()[0])
+    scale = torch.tensor(2.0 ** -7)
+    for n in (96, 50):
+        ds = torch.where(torch.rand((6, 300), generator=g) < 0.3,
+                         torch.randn((6, 300), generator=g), 0.0)
+        wt8 = torch.randint(-127, 128, (300, n), generator=g,
+                            dtype=torch.int8)
+        got = dm.dense_mirror(ds.to(cuda), wt8.to(cuda), scale.to(cuda))
+        assert torch.equal(got.cpu(), dm.plain(ds, wt8, scale))
 
 
 def test_kernel_wrappers_reject_what_the_kernels_do_not_take(cuda):

@@ -1,6 +1,7 @@
 """A/B device time of the port's CUDA kernel sources on one NVIDIA GPU.
 
-    python tools/kernel_ab.py [--kernel spmv|delta_encode|lstm_pointwise]
+    python tools/kernel_ab.py [--kernel spmv|delta_encode|lstm_pointwise|
+                               dense_mirror] [--ptxas]
                               SOURCE[:NVCC_FLAG...] [SOURCE[:FLAG...] ...]
 
 Each SOURCE is a version of ``src/repro_torch/kernels/csrc/
@@ -21,14 +22,25 @@ per source and case with the two times in ms.
   (D=123), H=1024, fp32 and Q8.8, and at B=1; 12 of 16 slots active.
 * ``lstm_pointwise``: the accumulate + HPE stage at B=16 and B=1,
   H=1024, 12 of 16 slots active.
+* ``dense_mirror``: ``spartus_dense_mirror_{f32,i8}`` on a CBTD-pruned
+  mirror (gamma 0.9375, M=64) at layer shapes Q=2048 and 1147, N=4096,
+  with 30% and 5% of the deltas fired (``chip_smoke.py`` phase 2's share
+  and the served model's), at B=1, 16 and 32.  A source given without
+  flags must equal the float64 plain version on the card bit for bit,
+  and every source must equal the first one bit for bit (the kernel's
+  summation order is fixed, so two versions of it agree exactly).
 
-For the last two, a source with the fused entry point
-(``spartus_delta_encode_step`` / ``spartus_lstm_pointwise_step``) runs
+For ``delta_encode`` and ``lstm_pointwise``, a source with the fused
+entry point (``spartus_delta_encode_step`` /
+``spartus_lstm_pointwise_step``) runs
 the stage as the engines call it, state updated in place; a source with
 only the unfused one (``spartus_delta_encode`` / ``spartus_lstm_pointwise``,
 up to the commit that fused them) runs its kernel alone on the same
 values, the concatenation and the add done beforehand.  A source given
 without flags must equal the plain version on the card bit for bit.
+
+``--ptxas`` prints, per source, what ``-Xptxas -v`` said of the bench's
+kernel: registers, shared memory and spill bytes per instantiation.
 
 It imports nothing of JAX and nothing of the JAX package.
 """
@@ -71,32 +83,57 @@ def build(specs):
     handles = []
     for spec, lib, proc in jobs:
         if proc is not None:
-            _, err = proc.communicate()
+            out, err = proc.communicate()
             if proc.returncode:
                 sys.exit(f"nvcc failed on {spec}:\n{err[-3000:]}")
+            lib.with_suffix(".log").write_text(out + err)
         handle = ctypes.CDLL(str(lib))
         for name, args in {**_build.SIGNATURES, **OLD_SIGNATURES}.items():
             if hasattr(handle, name):
                 getattr(handle, name).argtypes = args
                 getattr(handle, name).restype = ctypes.c_int
-        handles.append(handle)
+        handles.append((handle, lib.with_suffix(".log")))
     return handles
 
 
-def device_ms(torch, fn, kernel: str, iters: int = 50) -> float:
+def ptxas_lines(log: Path, kernel: str):
+    """What ``-Xptxas -v`` said of every instantiation of ``kernel``: its
+    properties and register lines, one string per instantiation."""
+    out, current = [], None
+    for line in log.read_text().splitlines() if log.exists() else []:
+        if "Compiling entry function" in line:
+            current = line.split("'")[1] if kernel in line else None
+            if current:
+                out.append(current)
+        elif current and ("spill" in line or "Used" in line):
+            out[-1] += " | " + line.split(":", 1)[-1].strip()
+    return out
+
+
+def device_ms(torch, fn, kernel: str, iters: int = 50,
+              tries: int = 3) -> float:
+    """Mean device time of ``kernel`` over ``iters`` calls of ``fn``; a
+    profile that caught fewer launches than calls is taken again, and
+    after ``tries`` the reading is nan (not measured)."""
     from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(iters):
-            fn()
-        torch.cuda.synchronize()
-    return sum(e.self_device_time_total for e in prof.key_averages()
-               if kernel in e.key) / iters / 1e3
+    for _ in range(tries):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(iters):
+                fn()
+            torch.cuda.synchronize()
+        events = [e for e in prof.key_averages() if kernel in e.key]
+        if sum(e.count for e in events) >= iters:
+            return sum(e.self_device_time_total
+                       for e in events) / iters / 1e3
+    print(f"kernel_ab: the profiler missed launches of {kernel}",
+          file=sys.stderr)
+    return float("nan")
 
 
-# -- cases: (name, setup(lib) -> (call, check)) ------------------------------
+# -- cases: (name, setup(lib) -> (call, check[, result])) --------------------
 
 
 def spmv_cases(torch):
@@ -257,7 +294,51 @@ def lstm_pointwise_setup(torch, lp, dm0, y, c0, h0):
     return setup
 
 
+def dense_mirror_cases(torch):
+    from repro_torch.core import apply_cbtd
+    from repro_torch.kernels import dense_mirror as dm
+
+    gen = torch.Generator().manual_seed(0)
+    out = []
+    for q in (2048, 1147):
+        wt = apply_cbtd(torch.randn((4096, q), generator=gen) * 0.1, 0.9375,
+                        64).t().contiguous()
+        scale = torch.tensor([2.0 ** -7])
+        wt8 = torch.round(wt / scale).clamp(-127, 127).to(torch.int8)
+        for p in (0.3, 0.05):
+            fired = torch.rand((32, q), generator=gen) < p
+            ds = torch.where(fired, torch.randn((32, q), generator=gen), 0.0)
+            for label, w, sc in (("f32", wt, None), ("i8", wt8, scale)):
+                d_w = w.cuda()
+                d_sc = None if sc is None else sc.cuda()
+                for b in (1, 16, 32):
+                    d_ds = ds[:b].contiguous().cuda()
+                    want = dm.plain(d_ds, d_w, d_sc)
+                    out.append((f"Q={q} {int(p * 100)}% B={b} {label}",
+                                dense_mirror_setup(torch, label, d_ds, d_w,
+                                                   d_sc, want)))
+    return out
+
+
+def dense_mirror_setup(torch, label, ds, wt, scale, want):
+    def setup(lib):
+        fn = getattr(lib, f"spartus_dense_mirror_{label}")
+        b, q = ds.shape
+        n = wt.shape[1]
+        y = torch.empty((b, n), device="cuda")
+        stream = torch.cuda.current_stream().cuda_stream
+        sc = 0 if scale is None else scale.data_ptr()
+
+        def call():
+            return fn(0, ds.data_ptr(), wt.data_ptr(), sc, y.data_ptr(), b,
+                      q, n, stream)
+
+        return call, lambda: torch.equal(y, want), lambda: y.clone()
+    return setup
+
+
 BENCHES = {
+    "dense_mirror": (dense_mirror_cases, "dense_mirror_kernel"),
     "spmv": (spmv_cases, "stsp_spmv"),
     "delta_encode": (delta_encode_cases, "delta_encode"),
     "lstm_pointwise": (lstm_pointwise_cases, "lstm_pointwise"),
@@ -267,6 +348,8 @@ BENCHES = {
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--kernel", choices=sorted(BENCHES), default="spmv")
+    ap.add_argument("--ptxas", action="store_true",
+                    help="print -Xptxas -v's lines for the bench's kernel")
     ap.add_argument("sources", nargs="+")
     args = ap.parse_args()
 
@@ -279,23 +362,32 @@ def main() -> int:
     make_cases, event = BENCHES[args.kernel]
     cases = make_cases(torch)
     runs = list(range(len(libs))) + list(reversed(range(len(libs))))
-    times = {}
+    times, firsts = {}, {}
     for i in runs:
-        spec, lib = libs[i]
+        spec, (lib, _) = libs[i]
         for name, setup in cases:
-            call, check = setup(lib)
+            call, check, *result = setup(lib)
             if call() != 0:
                 sys.exit(f"{spec} {name}: launch failed")
             torch.cuda.synchronize()
             if ":" not in spec and not check():
                 sys.exit(f"{spec} {name}: differs from the plain version")
+            if result:
+                got = result[0]()
+                if not torch.equal(got, firsts.setdefault(name, got)):
+                    sys.exit(f"{spec} {name}: differs from "
+                             f"{libs[0][0]} bit for bit")
             times.setdefault((spec, name), []).append(
                 device_ms(torch, call, event))
     print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
                          text=True).stdout.strip())
     for (spec, name), t in times.items():
-        print(f"{spec:40s} {name:28s} " + " ".join(f"{x:.4f}" for x in t))
+        print(f"{spec:40s} {name:28s} " + " ".join(f"{x:.5f}" for x in t))
+    if args.ptxas:
+        for spec, (_, log) in libs:
+            for line in ptxas_lines(log, event):
+                print(f"ptxas {spec}: {line}")
     return 0
 
 
