@@ -31,23 +31,28 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-_SPMV_ARGS = [_I, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P]
+_SPMV_ARGS = [_I, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P, _P, _P]
 SIGNATURES = {
     # device, x, h, s_hat, active, delta, s_hat_out, nnz, B, D, H, theta,
     # quantize, scale, qmin, qmax, stream
     "spartus_delta_encode_step": [_I, _P, _P, _P, _P, _P, _P, _P, _I, _I,
                                   _I, _F, _I, _F, _F, _F, _P],
-    # device, dm, y, c, active, h_out, dm_out, c_out, h_state, B, H, stream
+    # device, dm, y, c, active, h_out, dm_out, c_out, h_state, B, H,
+    # marks, n_marks, union counter, stream (marks and the counter: a
+    # layer's launch counters, ``kernels/counters.py``, or null)
     "spartus_lstm_pointwise_step": [_I, _P, _P, _P, _P, _P, _P, _P, _P, _I,
-                                    _I, _P],
-    # device, val, lidx, idx, ds, y, B, K, Q, M, BLEN, S, stream
+                                    _I, _P, _I, _P, _P],
+    # device, val, lidx, idx, ds, y, B, K, Q, M, BLEN, S, counts, marks,
+    # stream
     "spartus_stsp_spmv_f32_i32": _SPMV_ARGS,
     "spartus_stsp_spmv_f32_i8": _SPMV_ARGS,
     "spartus_stsp_spmv_i8_i32": _SPMV_ARGS,
     "spartus_stsp_spmv_i8_i8": _SPMV_ARGS,
-    # device, ds, wt, scale, y, B, Q, N, stream
-    "spartus_dense_mirror_f32": [_I, _P, _P, _P, _P, _I, _I, _I, _P],
-    "spartus_dense_mirror_i8": [_I, _P, _P, _P, _P, _I, _I, _I, _P],
+    # device, ds, wt, scale, y, B, Q, N, counts, marks, stream
+    "spartus_dense_mirror_f32": [_I, _P, _P, _P, _P, _I, _I, _I, _P, _P,
+                                 _P],
+    "spartus_dense_mirror_i8": [_I, _P, _P, _P, _P, _I, _I, _I, _P, _P,
+                                _P],
 }
 
 _lock = threading.Lock()

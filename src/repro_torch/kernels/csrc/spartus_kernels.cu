@@ -51,6 +51,51 @@ struct DeviceScope {
 };
 
 // ---------------------------------------------------------------------------
+// Launch counters of the pool's sparse products
+//
+// The product's and the HPE's entry points take two more pointers before
+// the stream, null when nothing counts: `counts`, one layer's four int64
+// counters [calls, fired, union, staged], and `marks`, one byte per
+// column of its [B, Q] deltas.  The product's launch (dense mirror or
+// scatter SpMV) adds its call, its fired entries and the mirror rows or
+// CBCSC columns it staged, and sets the mark of every column some row
+// fired; the layer's HPE launch, which follows it on the stream, counts
+// the marks into `union` and clears them.  So a layer-step counts in the
+// launches it already makes, on the device, and a CUDA graph that
+// replays them counts too.  Counting is a template parameter of the three
+// kernels: null pointers run the instantiations without it, which compile
+// to the kernels as they were (with a runtime test instead the dense
+// mirror read 4-5% slower at B = 1024, the SpMV 2-3%), and a counted
+// launch runs the same loops with the counting added.  The
+// counts read no value the arithmetic writes, and the arithmetic reads
+// nothing they write: outputs are bit-identical either way.
+// ---------------------------------------------------------------------------
+constexpr int kCountCalls = 0;   // the HPE adds to [2], union, by its
+constexpr int kCountFired = 1;   // own pointer
+constexpr int kCountStaged = 3;
+
+// The HPE's half: the marks [n] counted into *count and cleared; the grid
+// strides over them a warp at a time (blockDim.x a multiple of 32), one
+// atomic a warp that found any.
+__device__ __forceinline__ void count_marks(unsigned char* __restrict__ marks,
+                                            int n,
+                                            unsigned long long* count) {
+  const int lane = threadIdx.x & 31;
+  const size_t stride = static_cast<size_t>(gridDim.x) * blockDim.x;
+  for (size_t i0 = static_cast<size_t>(blockIdx.x) * blockDim.x +
+                   threadIdx.x - lane;
+       i0 < static_cast<size_t>(n); i0 += stride) {
+    const size_t i = i0 + lane;
+    const bool set = i < static_cast<size_t>(n) && marks[i] != 0;
+    if (set) marks[i] = 0;
+    const unsigned ballot = __ballot_sync(0xffffffffu, set);
+    if (lane == 0 && ballot != 0) {
+      atomicAdd(count, static_cast<unsigned long long>(__popc(ballot)));
+    }
+  }
+}
+
+// ---------------------------------------------------------------------------
 // delta_encode: the IPU stage of one layer-step
 //
 // Replaces: src/repro/kernels/delta_encode.py:delta_encode_pallas
@@ -204,13 +249,17 @@ __device__ __forceinline__ float tanh_rn(float v) {
   return static_cast<float>(tanh(static_cast<double>(v)));
 }
 
+// COUNT: count and clear the layer's marks (the launch counters).
+template <bool COUNT>
 __global__ void __launch_bounds__(kPointwiseMaxThreads)
     lstm_pointwise_kernel(const float* dm, const float* __restrict__ y,
                           const float* c,
                           const unsigned char* __restrict__ active,
                           float* __restrict__ h_out, float* dm_out,
                           float* c_out, float* __restrict__ h_state, int B,
-                          int H) {
+                          int H, unsigned char* __restrict__ marks,
+                          int n_marks, unsigned long long* union_count) {
+  if constexpr (COUNT) count_marks(marks, n_marks, union_count);
   const size_t n = static_cast<size_t>(B) * H;
   const size_t hs = static_cast<size_t>(H);
   for (size_t t = static_cast<size_t>(blockIdx.x) * blockDim.x + threadIdx.x;
@@ -419,19 +468,51 @@ __host__ __device__ constexpr int spmv_warp_bytes(int tile, int slice_v,
          align16(2 * tile * 2 * slice_l);
 }
 
+// The SpMV's launch counters for slot b, the list shared out over the
+// slot's blocks (counted by the slot's first block alone, the counted
+// SpMV read 6% slower at B = 1024 and BLEN 2, against 2% so): its live
+// list entries, each the staging of one CBCSC column, count as fired and
+// staged, and mark their columns; block (0, 0) counts the call.
+__device__ __forceinline__ void count_list(const int* __restrict__ idx_b,
+                                           const float* __restrict__ ds_b,
+                                           int K, int Q, bool first,
+                                           unsigned long long* counts,
+                                           unsigned char* marks) {
+  const int lane = threadIdx.x & 31;
+  unsigned n = 0;
+  for (int k = blockIdx.y * blockDim.x + threadIdx.x; k < K;
+       k += gridDim.y * blockDim.x) {
+    const int col = idx_b[k];
+    if (ds_b[k] != 0.0f &&
+        static_cast<unsigned>(col) < static_cast<unsigned>(Q)) {
+      marks[col] = 1;
+      ++n;
+    }
+  }
+  n = __reduce_add_sync(0xffffffffu, n);
+  if (first && threadIdx.x == 0) atomicAdd(&counts[kCountCalls], 1ull);
+  if (lane == 0 && n != 0) {
+    atomicAdd(&counts[kCountFired], static_cast<unsigned long long>(n));
+    atomicAdd(&counts[kCountStaged], static_cast<unsigned long long>(n));
+  }
+}
+
 // R = row registers per lane (>= ceil(S/16)); BLEN_C = 4 reads a PE's
 // pairs with one vector load per array, 0 loops over a runtime BLEN.
 // grid (B, M / P), blockDim.x = 32 * ceil(P / 2): half-warp h of warp w
 // serves PE pe0 + 2w + h.  Dynamic shared memory holds one region per
 // warp: live ds [2][T] | val [2][T][2 PEs][BLEN] | lidx [2][T][2][BLEN];
-// at the end it is reused for the block's [S][P] output.
-template <typename V, typename L, int R, int BLEN_C>
+// at the end it is reused for the block's [S][P] output.  COUNT: keep
+// the launch counters.
+template <typename V, typename L, int R, int BLEN_C, bool COUNT>
 __global__ void __launch_bounds__(32 * kSpmvMaxWarps)
     stsp_spmv_kernel(const V* __restrict__ val, const L* __restrict__ lidx,
                      const int* __restrict__ idx,
                      const float* __restrict__ ds, float* __restrict__ y,
                      int K, int Q, int M, int BLEN, int S, int P, int T,
-                     int unit_v, int unit_l) {
+                     int unit_v, int unit_l,
+                     unsigned long long* __restrict__ counts,
+                     unsigned char* __restrict__ marks) {
   extern __shared__ __align__(16) unsigned char smem[];
   const int blen = BLEN_C > 0 ? BLEN_C : BLEN;
   const int warp = threadIdx.x >> 5;
@@ -461,6 +542,9 @@ __global__ void __launch_bounds__(32 * kSpmvMaxWarps)
   const float* ds_b = ds + static_cast<size_t>(b) * K;
   const int n_tiles = (K + T - 1) / T;
   const unsigned lanes_below = (1u << lane) - 1u;
+  if (COUNT) {
+    count_list(idx_b, ds_b, K, Q, b == 0 && blockIdx.y == 0, counts, marks);
+  }
 
   int rows[R];
   float acc[R];
@@ -622,30 +706,35 @@ cudaError_t run_stsp_spmv(int device, dim3 grid, int threads, size_t smem,
                           cudaStream_t stream, const void* val,
                           const void* lidx, const int* idx, const float* ds,
                           float* y, int K, int Q, int M, int BLEN, int S,
-                          int P, int T, int unit_v, int unit_l) {
-  auto kernel = stsp_spmv_kernel<V, L, R, BLEN_C>;
+                          int P, int T, int unit_v, int unit_l,
+                          unsigned long long* counts, unsigned char* marks) {
+  const bool count = counts != nullptr;
+  const auto kernel = count ? stsp_spmv_kernel<V, L, R, BLEN_C, true>
+                            : stsp_spmv_kernel<V, L, R, BLEN_C, false>;
   if (smem > 48 * 1024) {
-    // opt in once per device, to the most any launch can ask for
-    static bool opted[kMaxDevices] = {};
-    if (device < 0 || device >= kMaxDevices || !opted[device]) {
+    // opt in once per device and kernel, to the most any launch can ask for
+    static bool opted[2][kMaxDevices] = {};
+    if (device < 0 || device >= kMaxDevices || !opted[count][device]) {
       cudaError_t err = cudaFuncSetAttribute(
           kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
           kSpmvSmemBudget);
       if (err != cudaSuccess) return err;
-      if (device >= 0 && device < kMaxDevices) opted[device] = true;
+      if (device >= 0 && device < kMaxDevices) opted[count][device] = true;
     }
   }
   kernel<<<grid, threads, smem, stream>>>(
       static_cast<const V*>(val), static_cast<const L*>(lidx), idx, ds, y, K,
-      Q, M, BLEN, S, P, T, unit_v, unit_l);
+      Q, M, BLEN, S, P, T, unit_v, unit_l, counts, marks);
   return cudaGetLastError();
 }
 
 template <typename V, typename L>
 int launch_stsp_spmv(int device, const void* val, const void* lidx,
                      const int* idx, const float* ds, float* y, int B, int K,
-                     int Q, int M, int BLEN, int S, void* stream) {
+                     int Q, int M, int BLEN, int S, long long* counts_i64,
+                     unsigned char* marks, void* stream) {
   constexpr int kMaxRows = kSpmvLanes * kSpmvMaxRowRegs;
+  auto* const counts = reinterpret_cast<unsigned long long*>(counts_i64);
   const DeviceScope scope(device);
   cudaError_t err = scope.err;
   if (err != cudaSuccess) return static_cast<int>(err);
@@ -697,11 +786,11 @@ int launch_stsp_spmv(int device, const void* val, const void* lidx,
               ? run_stsp_spmv<V, L, RR, 4>(device, grid, threads, smem, st,   \
                                            val, lidx, idx, ds, y, K, Q, M,    \
                                            BLEN, S, pes, tile, unit_v,        \
-                                           unit_l)                            \
+                                           unit_l, counts, marks)             \
               : run_stsp_spmv<V, L, RR, 0>(device, grid, threads, smem, st,   \
                                            val, lidx, idx, ds, y, K, Q, M,    \
                                            BLEN, S, pes, tile, unit_v,        \
-                                           unit_l);                           \
+                                           unit_l, counts, marks);            \
     return static_cast<int>(err);                                            \
   }
   SPMV_RUN(1)
@@ -873,13 +962,19 @@ __device__ __forceinline__ double mirror_widen(int8_t v) {
 // kMirrorThreads threads, 8 * mirror_warp_bytes(sizeof(W), RB, depth)
 // bytes of dynamic shared memory.  unit: the widest cp.async (16 or 4
 // bytes) that every row segment of the mirror allows, 0 for byte copies.
-template <typename W, int RB>
+// COUNT: keep the launch counters (counts, marks).  Pass p of rows is
+// counted by block p mod gridDim.x, so at B = 1024 the 32 passes' counts
+// spread over 32 blocks instead of delaying one, and from the ring's row
+// masks, outside the stage, whose registers are dearest (counted there,
+// the kernel spilled and read 7% slower).
+template <typename W, int RB, bool COUNT>
 __global__ void __launch_bounds__(kMirrorThreads, 1)  // one block an SM
     dense_mirror_kernel(const float* __restrict__ ds,
                         const W* __restrict__ wt,
                         const float* __restrict__ scale,
                         float* __restrict__ y, int B, int Q, int N,
-                        int unit) {
+                        int unit, unsigned long long* __restrict__ counts,
+                        unsigned char* __restrict__ marks) {
   constexpr int kDepth = mirror_depth(sizeof(W), RB);
   constexpr int kStride = mirror_stride(RB);
   constexpr int kSeg = kMirrorSlotRows * 32;        // mirror values a slot
@@ -905,8 +1000,16 @@ __global__ void __launch_bounds__(kMirrorThreads, 1)  // one block an SM
   const int n = n_slices > warp
                     ? (n_slices - warp + kMirrorWarps - 1) / kMirrorWarps
                     : 0;
+  if (COUNT && blockIdx.x == 0 && threadIdx.x == 0) {
+    atomicAdd(&counts[kCountCalls], 1ull);
+  }
 
   for (int b0 = 0; b0 < B; b0 += RB) {
+    // every block stages the same mirror rows for its own 32 columns: one
+    // block counts the pass
+    const bool counting =
+        COUNT && (b0 / RB) % static_cast<int>(gridDim.x) ==
+                     static_cast<int>(blockIdx.x);
     // a zeroed ring (the partials of the last pass lie over it): the
     // zero rows at k = 32 and, in the mirror segments a slice did not
     // copy, finite values only
@@ -1051,6 +1154,24 @@ __global__ void __launch_bounds__(kMirrorThreads, 1)  // one block an SM
         }
       }
     };
+    // the launch counters of slice s, from its row masks in the ring:
+    // the pass's fired entries, the mirror rows it staged (their union),
+    // and their marks; apart from the stage, where registers are dearest
+    auto count = [&](int s) {
+      const int slot = s % kDepth;
+      const unsigned m = lane < RB ? msk[slot * (RB + 1) + lane] : 0u;
+      const unsigned live = __brev(__reduce_or_sync(0xffffffffu, m));
+      const unsigned fired = __reduce_add_sync(0xffffffffu, __popc(m));
+      if ((live >> lane) & 1u) {
+        marks[kMirrorSlice * (kMirrorWarps * s + warp) + lane] = 1;
+      }
+      if (lane == 0) {
+        atomicAdd(&counts[kCountFired],
+                  static_cast<unsigned long long>(fired));
+        atomicAdd(&counts[kCountStaged],
+                  static_cast<unsigned long long>(__popc(live)));
+      }
+    };
     // one step: stage slice s + depth - 1 from v, load v with the deltas
     // of slice s + depth + 1 (two steps ahead), compute slice s
     auto step = [&](float (&v)[RB], int s) {
@@ -1059,6 +1180,7 @@ __global__ void __launch_bounds__(kMirrorThreads, 1)  // one block an SM
       if (s + kDepth + 1 < n) load(v, s + kDepth + 1);
       cp_async_wait<kDepth - 1>();  // this lane's copies of slice s landed
       __syncwarp();                 // and every lane's
+      if (counting) count(s);
       compute(s);
       __syncwarp();  // slice s is read before its slot is staged again
     };
@@ -1106,11 +1228,12 @@ __global__ void __launch_bounds__(kMirrorThreads, 1)  // one block an SM
   }
 }
 
-template <typename W, int RB>
+template <typename W, int RB, bool COUNT>
 cudaError_t run_dense_mirror(int device, const float* ds, const W* wt,
                              const float* scale, float* y, int B, int Q,
-                             int N, int unit, cudaStream_t stream) {
-  auto kernel = dense_mirror_kernel<W, RB>;
+                             int N, int unit, unsigned long long* counts,
+                             unsigned char* marks, cudaStream_t stream) {
+  auto kernel = dense_mirror_kernel<W, RB, COUNT>;
   const size_t smem = kMirrorWarps * mirror_warp_bytes(
                                          sizeof(W), RB,
                                          mirror_depth(sizeof(W), RB));
@@ -1127,14 +1250,16 @@ cudaError_t run_dense_mirror(int device, const float* ds, const W* wt,
   }
   const dim3 grid((N + 31) / 32);
   kernel<<<grid, kMirrorThreads, smem, stream>>>(ds, wt, scale, y, B, Q, N,
-                                                 unit);
+                                                 unit, counts, marks);
   return cudaGetLastError();
 }
 
 template <typename W>
 int launch_dense_mirror(int device, const float* ds, const W* wt,
                         const float* scale, float* y, int B, int Q, int N,
+                        long long* counts_i64, unsigned char* marks,
                         void* stream) {
+  auto* const counts = reinterpret_cast<unsigned long long*>(counts_i64);
   const DeviceScope scope(device);
   cudaError_t err = scope.err;
   if (err != cudaSuccess) return static_cast<int>(err);
@@ -1153,8 +1278,13 @@ int launch_dense_mirror(int device, const float* ds, const W* wt,
   const auto st = static_cast<cudaStream_t>(stream);
 #define MIRROR_RUN(RR)                                                      \
   if (rows <= RR) {                                                         \
-    return static_cast<int>(run_dense_mirror<W, RR>(                        \
-        device, ds, wt, scale, y, B, Q, N, unit, st));                     \
+    return static_cast<int>(                                                \
+        counts != nullptr                                                   \
+            ? run_dense_mirror<W, RR, true>(device, ds, wt, scale, y, B, Q, \
+                                            N, unit, counts, marks, st)     \
+            : run_dense_mirror<W, RR, false>(device, ds, wt, scale, y, B,   \
+                                             Q, N, unit, nullptr, nullptr,  \
+                                             st));                          \
   }
   MIRROR_RUN(1)
   MIRROR_RUN(2)
@@ -1215,11 +1345,15 @@ int spartus_delta_encode_step(int device, const float* x, const float* h,
 // dm [B, 4, H] (gates i, g, f, o), y [B, 4H] or null, c [B, H]; h_out
 // [B, H] written for every row; dm_out (or null), c_out and h_state (or
 // null) written for the rows active selects (active [B] bools, or null
-// for all rows); dm_out may alias dm and c_out may alias c.
+// for all rows); dm_out may alias dm and c_out may alias c.  marks
+// [n_marks] (or null) are counted into *union_count and cleared (the
+// launch counters above).
 int spartus_lstm_pointwise_step(int device, const float* dm, const float* y,
                                 const float* c, const unsigned char* active,
                                 float* h_out, float* dm_out, float* c_out,
-                                float* h_state, int B, int H, void* stream) {
+                                float* h_state, int B, int H,
+                                unsigned char* marks, int n_marks,
+                                long long* union_count, void* stream) {
   const DeviceScope scope(device);
   cudaError_t err = scope.err;
   if (err != cudaSuccess) return static_cast<int>(err);
@@ -1236,18 +1370,27 @@ int spartus_lstm_pointwise_step(int device, const float* dm, const float* y,
   }
   const size_t want = (n + threads - 1) / threads;
   const int blocks = static_cast<int>(want < 65535 ? want : 65535);
-  lstm_pointwise_kernel<<<blocks, threads, 0,
-                          static_cast<cudaStream_t>(stream)>>>(
-      dm, y, c, active, h_out, dm_out, c_out, h_state, B, H);
+  const auto st = static_cast<cudaStream_t>(stream);
+  if (marks != nullptr) {
+    lstm_pointwise_kernel<true><<<blocks, threads, 0, st>>>(
+        dm, y, c, active, h_out, dm_out, c_out, h_state, B, H, marks,
+        n_marks, reinterpret_cast<unsigned long long*>(union_count));
+  } else {
+    lstm_pointwise_kernel<false><<<blocks, threads, 0, st>>>(
+        dm, y, c, active, h_out, dm_out, c_out, h_state, B, H, nullptr, 0,
+        nullptr);
+  }
   return static_cast<int>(cudaGetLastError());
 }
 
+// counts and marks: one layer's counters (the launch counters above), or
+// null.
 #define SPARTUS_SPMV_ENTRY(NAME, V, L)                                        \
   int NAME(int device, const void* val, const void* lidx, const int* idx,    \
            const float* ds, float* y, int B, int K, int Q, int M, int BLEN,  \
-           int S, void* stream) {                                            \
+           int S, long long* counts, unsigned char* marks, void* stream) {   \
     return launch_stsp_spmv<V, L>(device, val, lidx, idx, ds, y, B, K, Q, M, \
-                                  BLEN, S, stream);                          \
+                                  BLEN, S, counts, marks, stream);           \
   }
 
 SPARTUS_SPMV_ENTRY(spartus_stsp_spmv_f32_i32, float, int32_t)
@@ -1258,19 +1401,22 @@ SPARTUS_SPMV_ENTRY(spartus_stsp_spmv_i8_i8, int8_t, int8_t)
 #undef SPARTUS_SPMV_ENTRY
 
 // ds [B, Q] fp32, wt [Q, N] fp32 or int8, scale a device float or null,
-// y [B, N] written.
+// y [B, N] written; counts and marks: one layer's counters (the launch
+// counters above), or null.
 int spartus_dense_mirror_f32(int device, const float* ds, const float* wt,
                              const float* scale, float* y, int B, int Q,
-                             int N, void* stream) {
+                             int N, long long* counts, unsigned char* marks,
+                             void* stream) {
   return launch_dense_mirror<float>(device, ds, wt, scale, y, B, Q, N,
-                                    stream);
+                                    counts, marks, stream);
 }
 
 int spartus_dense_mirror_i8(int device, const float* ds, const int8_t* wt,
                             const float* scale, float* y, int B, int Q,
-                            int N, void* stream) {
+                            int N, long long* counts, unsigned char* marks,
+                            void* stream) {
   return launch_dense_mirror<int8_t>(device, ds, wt, scale, y, B, Q, N,
-                                     stream);
+                                     counts, marks, stream);
 }
 
 }  // extern "C"

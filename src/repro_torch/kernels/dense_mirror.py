@@ -11,7 +11,8 @@ row's sum is a function of Q alone, so a session's row does not depend
 on the pool it shares (cuBLAS's fp32 GEMM picks another reduction order
 for 1 row than for 16, which the recurrence amplifies).  A CPU tensor
 runs the plain version (``ref.dense_mirror_ref``, a float64 matmul); a
-CUDA tensor launches the kernel or raises.
+CUDA tensor launches the kernel or raises.  With a layer's launch
+counters selected (``kernels/counters.py``) the call also counts itself.
 """
 from __future__ import annotations
 
@@ -20,7 +21,7 @@ from typing import Optional
 import torch
 
 from repro_torch.analysis import hlo
-from repro_torch.kernels import _build, ref
+from repro_torch.kernels import _build, counters, ref
 
 KERNEL = _build.Kernel("dense_mirror")
 plain = ref.dense_mirror_ref
@@ -34,8 +35,12 @@ def dense_mirror(ds: torch.Tensor, wt: torch.Tensor,
                  scale: Optional[torch.Tensor] = None) -> torch.Tensor:
     """ds [B, Q] float32, wt [Q, N] float32 or int8, scale a 1-element
     float32 tensor or None -> y [B, N] float32."""
+    layer = counters.selected.layer
     if ds.device.type == "cpu":
-        return plain(ds, wt, scale)
+        y = plain(ds, wt, scale)
+        if layer is not None and ds.shape[0] and wt.shape[1]:
+            counters.count_mirror_plain(layer, ds)
+        return y
     device = _build.check_cuda("dense_mirror", _DTYPES, ds=ds, wt=wt,
                                scale=scale)
     if wt.dtype not in _TAGS:
@@ -51,5 +56,5 @@ def dense_mirror(ds: torch.Tensor, wt: torch.Tensor,
     n = wt.shape[1]
     y = torch.empty((b, n), dtype=torch.float32, device=device)
     KERNEL.launch(f"spartus_dense_mirror_{_TAGS[wt.dtype]}", device, ds, wt,
-                  scale, y, b, q, n)
+                  scale, y, b, q, n, *counters.pointers(layer))
     return y

@@ -8,7 +8,10 @@ it adds the MAC output to the delta memories and writes dm, c and h back
 in place for the active slots.  ``lstm_pointwise``, the reference's call
 shape, runs the same kernel with nothing to add and separate outputs.  A
 CPU tensor runs the plain version (``ref``); a CUDA tensor launches the
-kernel or raises.
+kernel or raises.  With a layer's launch counters selected
+(``kernels/counters.py``), ``lstm_pointwise_step`` also counts the
+columns its layer's product marked into the layer's union and clears
+them.
 """
 from __future__ import annotations
 
@@ -17,7 +20,7 @@ from typing import Optional, Tuple
 import torch
 
 from repro_torch.analysis import hlo
-from repro_torch.kernels import _build, ref
+from repro_torch.kernels import _build, counters, ref
 
 KERNEL = _build.Kernel("lstm_pointwise")
 plain = ref.lstm_pointwise_ref
@@ -44,7 +47,7 @@ def lstm_pointwise(dm: torch.Tensor, c: torch.Tensor
     h_out = torch.empty_like(c)
     c_out = torch.empty_like(c)
     KERNEL.launch("spartus_lstm_pointwise_step", device, dm, None, c, None,
-                  h_out, None, c_out, None, b, hidden)
+                  h_out, None, c_out, None, b, hidden, None, 0, None)
     return h_out, c_out
 
 
@@ -56,8 +59,12 @@ def lstm_pointwise_step(dm: torch.Tensor, y: torch.Tensor, c: torch.Tensor,
     [B, 4H]) and the gate math on dm' and c [B, H].  dm', c' and h are
     written in place into dm, c and h [B, H] for the rows ``active [B]``
     (bool) selects, all rows if None.  Returns h [B, H] for every row."""
+    layer = counters.selected.layer
     if dm.device.type == "cpu":
-        return plain_step(dm, y, c, h, active)
+        out = plain_step(dm, y, c, h, active)
+        if layer is not None and out.numel():
+            counters.count_marks_plain(layer)
+        return out
     device = _build.check_cuda("lstm_pointwise", _DTYPES, dm=dm, y=y, c=c,
                                h=h, active=active)
     b, hidden = c.shape if c.dim() == 2 else (-1, -1)
@@ -70,6 +77,8 @@ def lstm_pointwise_step(dm: torch.Tensor, y: torch.Tensor, c: torch.Tensor,
             f"{tuple(c.shape)}, {tuple(h.shape)} and "
             f"{None if active is None else tuple(active.shape)}")
     h_out = torch.empty_like(c)
+    marks, n_marks, union = ((None, 0, None) if layer is None else
+                             (layer.marks, layer.marks.shape[0], layer.union))
     KERNEL.launch("spartus_lstm_pointwise_step", device, dm, y, c, active,
-                  h_out, dm, c, h, b, hidden)
+                  h_out, dm, c, h, b, hidden, marks, n_marks, union)
     return h_out

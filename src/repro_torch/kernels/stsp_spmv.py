@@ -16,14 +16,18 @@ on fp32/int8 ``val`` and int32/int8 ``lidx``) serves both Pallas kernels:
 A CPU tensor runs the plain versions (``ref.stsp_spmv_scatter_batch_ref``
 for the pool, the one-hot spec ``ref.stsp_spmv_ref`` for batch 1); a CUDA
 tensor launches the kernel or raises.  ``val`` is returned unscaled: an
-int8 payload's scale is applied by the caller (``ops``).
+int8 payload's scale is applied by the caller (``ops``).  The pool's
+call counts itself when a layer's launch counters are selected
+(``kernels/counters.py``).
 """
 from __future__ import annotations
+
+from typing import Optional
 
 import torch
 
 from repro_torch.analysis import hlo
-from repro_torch.kernels import _build, ref
+from repro_torch.kernels import _build, counters, ref
 
 SCATTER_BATCH_KERNEL = _build.Kernel("stsp_spmv_scatter_batch")
 KERNEL = _build.Kernel("stsp_spmv")
@@ -35,7 +39,8 @@ MAX_S = 512          # 16 lanes per PE keep <= 32 rows each in registers
 
 
 def _launch(kernel: _build.Kernel, val: torch.Tensor, lidx: torch.Tensor,
-            idx: torch.Tensor, ds_vals: torch.Tensor, s: int) -> torch.Tensor:
+            idx: torch.Tensor, ds_vals: torch.Tensor, s: int,
+            layer: Optional[counters.LayerCounters] = None) -> torch.Tensor:
     device = _build.check_cuda(
         kernel.name, {"idx": torch.int32, "ds_vals": torch.float32},
         val=val, lidx=lidx, idx=idx, ds_vals=ds_vals)
@@ -59,7 +64,7 @@ def _launch(kernel: _build.Kernel, val: torch.Tensor, lidx: torch.Tensor,
     y = torch.empty((b, s * m), dtype=torch.float32, device=device)
     symbol = f"spartus_stsp_spmv_{_TAGS[val.dtype]}_{_TAGS[lidx.dtype]}"
     kernel.launch(symbol, device, val, lidx, idx, ds_vals, y, b, k, q, m,
-                  blen, s)
+                  blen, s, *counters.pointers(layer))
     return y
 
 
@@ -68,9 +73,13 @@ def stsp_spmv_scatter_batch(val: torch.Tensor, lidx: torch.Tensor,
                             idx: torch.Tensor, ds_vals: torch.Tensor, *,
                             s: int) -> torch.Tensor:
     """Pool SpMxSpV: idx int32 / ds_vals float32 [B, K] -> y [B, S*M]."""
+    layer = counters.selected.layer
     if val.device.type == "cpu":
-        return plain_batch(val, lidx, idx, ds_vals, s)
-    return _launch(SCATTER_BATCH_KERNEL, val, lidx, idx, ds_vals, s)
+        y = plain_batch(val, lidx, idx, ds_vals, s)
+        if layer is not None and idx.shape[0] and val.shape[1] and s:
+            counters.count_list_plain(layer, idx, ds_vals)
+        return y
+    return _launch(SCATTER_BATCH_KERNEL, val, lidx, idx, ds_vals, s, layer)
 
 
 @hlo.kernel_region("stsp_spmv")

@@ -390,31 +390,35 @@ class AsyncSpartusServer:
             if existing is not None:
                 return existing           # idempotent re-open
         arrival_wall = time.perf_counter()
-        if feats is not None:
-            # validate BEFORE anything is enqueued: a bad request must be
-            # a per-request error, never a poisoned admission the driver
-            # trips over later.
-            feats = self._validated(feats)
+        with self._tracer.span("stream_open"):
+            if feats is not None:
+                # validate BEFORE anything is enqueued: a bad request
+                # must be a per-request error, never a poisoned admission
+                # the serving loop trips over later.
+                feats = self._validated(feats)
+            shed = (self._sem is not None and self.overload_policy == "shed"
+                    and self._sem.locked())
+            if shed and self.obs is not None:
+                self.obs.fold_shed()
+        if shed:
+            raise AdmissionShed(retry_after_ms=max(
+                self.target_chunk_s * 1e3, 50.0))
         if self._sem is not None:
-            if self.overload_policy == "shed" and self._sem.locked():
-                if self.obs is not None:
-                    self.obs.fold_shed()
-                raise AdmissionShed(retry_after_ms=max(
-                    self.target_chunk_s * 1e3, 50.0))
             await self._sem.acquire()     # <- the admission-queue bound
-        req_id = next(self._ids)
-        handle = StreamHandle(self, req_id)
-        cs = _ClientState(req_id, handle, arrival_wall, want_partials,
-                          token=token)
-        if feats is not None:
-            cs.buffered.append(feats)
-        self._clients[req_id] = cs
-        self._waiting.append(cs)
-        if token is not None:
-            self._tokens[token] = handle
-        if want_partials:
-            self._n_partial_subs += 1
-        self._wake.set()
+        with self._tracer.span("stream_open"):
+            req_id = next(self._ids)
+            handle = StreamHandle(self, req_id)
+            cs = _ClientState(req_id, handle, arrival_wall, want_partials,
+                              token=token)
+            if feats is not None:
+                cs.buffered.append(feats)
+            self._clients[req_id] = cs
+            self._waiting.append(cs)
+            if token is not None:
+                self._tokens[token] = handle
+            if want_partials:
+                self._n_partial_subs += 1
+            self._wake.set()
         return handle
 
     async def submit(self, feats: np.ndarray, *,
@@ -738,10 +742,12 @@ class AsyncSpartusServer:
             # dead pool forever.
             pool = self.pool
             self._wake.clear()
-            self._pump()
-            self._service_lagging()
-            self._reap_idle()
-            if not self._has_work():
+            with self._tracer.span("loop_service"):
+                self._pump()
+                self._service_lagging()
+                self._reap_idle()
+                work = self._has_work()
+            if not work:
                 if self._stopping and not self._clients and \
                         not self._waiting:
                     break
@@ -758,8 +764,15 @@ class AsyncSpartusServer:
                     await self._wake.wait()
                 continue
             t0 = loop.time()
+            handoff = None
             try:
-                if self._exec is not None:
+                if self._exec is not None and self.obs is not None:
+                    t_submit = time.perf_counter()
+                    finished, adv, t_in, t_out = await loop.run_in_executor(
+                        self._exec, _timed_tick, pool, self.now)
+                    handoff = ((t_in - t_submit)
+                               + (time.perf_counter() - t_out))
+                elif self._exec is not None:
                     finished, adv = await loop.run_in_executor(
                         self._exec, pool.tick, self.now)
                 else:
@@ -776,7 +789,9 @@ class AsyncSpartusServer:
             with self._tracer.span("delivery_pump"):
                 self._deliver(self.pool.take_partials(), finished)
             if self.obs is not None:
-                self._fold_loop_side(dispatched=adv > 0)
+                with self._tracer.span("loop_fold"):
+                    self._fold_loop_side(dispatched=adv > 0,
+                                         handoff_s=handoff)
             with self._tracer.span("pacing_idle"):
                 if self.target_chunk_s > 0.0:
                     # wall-clock-paced boundaries: one chunk per period;
@@ -860,7 +875,8 @@ class AsyncSpartusServer:
         kwargs["max_frames"] = old.pool_config()["max_frames"]
         new = SessionPool(self._engine, self.capacity, **kwargs)
         new.n_dispatches = old.n_dispatches          # stats continuity
-        new._overlap_fracs = list(old._overlap_fracs)
+        new._overlap_sum = old._overlap_sum
+        new._overlap_n = old._overlap_n
         restored = []
         for snap in snaps:
             try:
@@ -898,11 +914,14 @@ class AsyncSpartusServer:
 
     # -- observability -------------------------------------------------------
 
-    def _fold_loop_side(self, *, dispatched: bool) -> None:
+    def _fold_loop_side(self, *, dispatched: bool,
+                        handoff_s: Optional[float] = None) -> None:
         """Fold the driver-loop-side signals the pool cannot see: lagging
-        consumers, the deepest partial queue, connected streams.  When
-        this iteration dispatched a chunk, also amend the boundary sample
-        the pool just appended — host bookkeeping only, no device work."""
+        consumers, the deepest partial queue, connected streams, and the
+        offloaded tick's thread hand-off (submit to worker start plus
+        worker end to loop resume).  When this iteration dispatched a
+        chunk, also amend the boundary sample the pool just appended —
+        host bookkeeping only, no device work."""
         obs = self.obs
         lagging = len(self._lagging)
         depth = max((cs.handle._partials.qsize()
@@ -910,11 +929,13 @@ class AsyncSpartusServer:
         obs.g_lagging.set(lagging)
         obs.g_queue_depth.set(depth)
         obs.g_connected.set(len(self._clients))
+        if handoff_s is not None:
+            obs.h_handoff.observe(handoff_s)
         if dispatched:
-            obs.timeseries.update_last({
-                "lagging": lagging,
-                "partial_queue_depth_max": depth,
-            })
+            fields = {"lagging": lagging, "partial_queue_depth_max": depth}
+            if handoff_s is not None:
+                fields["handoff_s"] = handoff_s
+            obs.timeseries.update_last(fields)
 
     @property
     def n_connected(self) -> int:
@@ -941,6 +962,14 @@ class AsyncSpartusServer:
             host_overlap_frac=self.pool.mean_host_overlap_frac(),
             bytes_per_slot=self.pool.bytes_per_slot(),
         )
+
+
+def _timed_tick(pool: SessionPool, now: int):
+    """``pool.tick(now)`` on the worker, with the worker's own clock read
+    as it starts and ends: ``(finished, frames, t_start, t_end)``."""
+    t_start = time.perf_counter()
+    finished, adv = pool.tick(now)
+    return finished, adv, t_start, time.perf_counter()
 
 
 def _bind_device(device: torch.device,

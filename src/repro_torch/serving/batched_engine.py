@@ -13,7 +13,10 @@ each step runs, for every layer,
 
 plus the FCL/logit head.  An ``active`` mask freezes idle slots and a
 ``reset`` mask re-initialises admitted slots.  Telemetry accumulates on
-the device.
+the device, and so do the launch counters of each layer's product in a
+step run inside ``kernels.counters.counting()`` once `count_kernels` has
+made them: the product and HPE launches count themselves, so no step adds
+a launch for them.
 
 `PoolState` is preallocated once and updated IN PLACE by every step:
 that stands in for the reference's buffer donation, so the slabs are
@@ -45,6 +48,7 @@ import torch
 
 from repro_torch._device import DeviceLike, HostCopy, resolve_device, upload
 from repro_torch.analysis.contracts import hotpath_contract
+from repro_torch.kernels import counters as kcount
 from repro_torch.kernels import ops
 from repro_torch.models.lstm_am import LSTMAMConfig
 from repro_torch.serving import telemetry as tele
@@ -101,6 +105,8 @@ class BatchedSpartusEngine(PackedSpartusModel):
         self._n_cols_dev = torch.tensor(self.n_cols, dtype=torch.float32,
                                         device=self.device)
         self._replicas: List["BatchedSpartusEngine"] = []
+        # the layers' launch counters; None: nothing counts
+        self.counters: Optional[kcount.KernelCounters] = None
 
     def on(self, device: DeviceLike) -> "BatchedSpartusEngine":
         """This engine with its packed weights on ``device``: the engine
@@ -122,8 +128,21 @@ class BatchedSpartusEngine(PackedSpartusModel):
         rep._dm0 = [t.to(device) for t in self._dm0]
         rep._n_cols_dev = self._n_cols_dev.to(device)
         rep._replicas = []
+        rep.counters = None
         self._replicas.append(rep)
         return rep
+
+    def count_kernels(self) -> kcount.KernelCounters:
+        """This engine's launch counters, made (zeroed) on the first call;
+        from then on every step run inside ``counters.counting()`` counts
+        into them."""
+        if self.counters is None:
+            self.counters = kcount.KernelCounters(
+                self.n_cols,
+                ["dense_mirror" if l.w_dense_t is not None else "stsp_spmv"
+                 for l in self.layers],
+                self.device)
+        return self.counters
 
     # -- state management ----------------------------------------------------
 
@@ -174,25 +193,34 @@ class BatchedSpartusEngine(PackedSpartusModel):
         quant = active_quant(cfg) is not None
         nnz_layers, dropped_layers = [], []
         h = x
-        for layer, st in zip(self.layers, state.layers):
-            wscale = layer.scale if quant else None
-            # IPU on [h | st.h], st.s_hat updated for active slots
-            delta, nnz = ops.delta_encode_step(
-                h, st.h, st.s_hat, cfg.theta, active=active,
-                **act_kwargs(cfg))
-            if layer.w_dense_t is not None:
-                y, dropped = ops.delta_spmv_dense_topk_batch(
-                    layer.w_dense_t, delta, layer.capacity, scale=wscale)
-            else:
-                idx, vals, dropped = ops.select_active_columns_batch(
-                    delta, layer.capacity)
-                y = ops.stsp_spmv_batch(layer.enc.val, layer.enc.lidx, idx,
-                                        vals, s=layer.enc.s, scale=wscale)
-            # dm += y and the HPE; st.dm, st.c, st.h updated for active
-            # slots, h (every slot) is the next layer's input
-            h = ops.lstm_pointwise_step(st.dm, y, st.c, st.h, active=active)
-            nnz_layers.append(nnz)
-            dropped_layers.append(dropped)
+        counts = (self.counters.layers
+                  if self.counters is not None and kcount.selected.counting
+                  else (None,) * len(self.layers))
+        try:
+            for layer, st, count in zip(self.layers, state.layers, counts):
+                kcount.select(count)
+                wscale = layer.scale if quant else None
+                # IPU on [h | st.h], st.s_hat updated for active slots
+                delta, nnz = ops.delta_encode_step(
+                    h, st.h, st.s_hat, cfg.theta, active=active,
+                    **act_kwargs(cfg))
+                if layer.w_dense_t is not None:
+                    y, dropped = ops.delta_spmv_dense_topk_batch(
+                        layer.w_dense_t, delta, layer.capacity, scale=wscale)
+                else:
+                    idx, vals, dropped = ops.select_active_columns_batch(
+                        delta, layer.capacity)
+                    y = ops.stsp_spmv_batch(layer.enc.val, layer.enc.lidx,
+                                            idx, vals, s=layer.enc.s,
+                                            scale=wscale)
+                # dm += y and the HPE; st.dm, st.c, st.h updated for active
+                # slots, h (every slot) is the next layer's input
+                h = ops.lstm_pointwise_step(st.dm, y, st.c, st.h,
+                                            active=active)
+                nnz_layers.append(nnz)
+                dropped_layers.append(dropped)
+        finally:
+            kcount.select(None)
         tele.accumulate_layers(state.telemetry, torch.stack(nnz_layers),
                                torch.stack(dropped_layers), active)
         state.cursor.copy_(new_cursor)

@@ -27,6 +27,50 @@ statistics.  This module is that data plane, in three pieces:
   Disabled tracing costs one attribute read and a no-op context manager
   per phase (`NULL_TRACER`), so the hot path never pays for it.
 
+The port adds what a CUDA graph of the chunk and the host's idle time
+need measured from inside the program:
+
+* the pool engines' **launch counters** (``kernels/counters.py``), which
+  ride the telemetry totals' lagged copy into
+  ``spartus_kernel_{calls,fired,union,staged}_total{kernel=,layer=}``
+  and each sample's ``<kernel>_<field>_inc`` (summed over layers and
+  shards, one window late like ``temporal_sparsity_inc``);
+* the tick's **phases** as leaf spans, none covering another on its
+  thread (but a client's ``stream_open``, which runs while the loop
+  yields in ``pacing_idle``), so a gap in the device's work falls under
+  the phase that was running:
+
+  ================  ===========  ==========================================
+  span              thread       what
+  ================  ===========  ==========================================
+  admission_upload  tick worker  staged admissions and appends uploaded
+  dispatch          tick worker  the chunk's launches
+  snapshot_fetch    tick worker  the previous chunk's copies resolved
+  slot_bookkeeping  tick worker  every walk over the slots, retirements
+  partials_stage    tick worker  D2H copies staged behind the chunk
+  obs_fold          tick worker  the boundary fold
+  loop_service      event loop   pump, lagging backfill, reaper, work test
+  delivery_pump     event loop   partials and results to the clients
+  loop_fold         event loop   the loop side's fold
+  pacing_idle       event loop   the pacing wait, where clients run
+  stream_open       event loop   the synchronous part of ``stream()``
+  ================  ===========  ==========================================
+
+* the **hand-off** between the two threads, which no span can hold: with
+  observability on, the async server reads ``time.perf_counter`` at
+  submit, worker start, worker end and loop resume, and folds (start -
+  submit) + (resume - end) into ``spartus_tick_handoff_seconds`` and the
+  sample's ``handoff_s``; each sample also holds ``t_mono``, its
+  boundary's ``time.perf_counter()``, and `recent_timeseries()` keeps
+  the newest pools' series after their servers are gone;
+* **one clock**: `Tracer` stamps spans in microseconds of
+  ``time.perf_counter()``, and the JSON it writes holds
+  ``otherData.perf_counter_to_unix_ns``, read at the dump: an event that
+  torch.profiler stamps at ``e`` Unix-epoch nanoseconds lies at ``(e -
+  perf_counter_to_unix_ns) / 1e3`` on the trace's axis, so a
+  ``launch/serve.py --trace`` file and a device trace of the same
+  process line up.
+
 `PoolObservability` bundles the three and owns the **boundary-fold
 design rule** (the `TelemetryState` rule extended): every hot-path
 source is folded at chunk boundaries ONLY, on host values the pool
@@ -50,10 +94,13 @@ from typing import Any, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 
+from repro_torch.kernels.counters import FIELDS as KERNEL_FIELDS
+from repro_torch.kernels.counters import KERNELS
+
 __all__ = [
     "Counter", "Gauge", "Histogram", "MetricsRegistry",
     "TimeSeries", "Tracer", "NULL_TRACER", "PoolObservability",
-    "DEFAULT_TIMESERIES_LEN",
+    "DEFAULT_TIMESERIES_LEN", "recent_timeseries",
 ]
 
 #: default bound on the per-chunk time-series ring buffer (samples).
@@ -64,6 +111,14 @@ DEFAULT_TIMESERIES_LEN = 4096
 #: accelerator chunks.
 DEFAULT_TIME_BUCKETS = (1e-4, 3e-4, 1e-3, 3e-3, 1e-2, 3e-2, 1e-1, 3e-1,
                         1.0, 3.0)
+
+#: buckets (seconds) of the tick's thread hand-off: tens of microseconds
+#: on an idle host to tens of milliseconds behind a busy event loop
+HANDOFF_BUCKETS = (1e-5, 3e-5, 1e-4, 3e-4, 1e-3, 3e-3, 1e-2, 3e-2, 1e-1)
+
+#: how many of the process's newest `PoolObservability` time series
+#: `recent_timeseries` keeps past their pools
+RECENT_TIMESERIES = 4
 
 
 def _make_lock(name: str) -> threading.Lock:
@@ -362,6 +417,21 @@ class TimeSeries:
         return [dict(s) for s in samples]
 
 
+#: the time series of the newest `PoolObservability` objects made in this
+#: process; appended by ``PoolObservability.__init__`` (an atomic deque
+#: append), bounded so the process holds at most a few rings
+_recent_series: deque = deque(maxlen=RECENT_TIMESERIES)
+
+
+def recent_timeseries() -> List["TimeSeries"]:
+    """The time series of the newest `RECENT_TIMESERIES` pools'
+    observabilities made in this process, oldest first.  They outlive
+    their pools and servers, so a run's boundary samples (``t_mono``,
+    ``handoff_s``, the launch counters' increments) can be read once the
+    server that folded them is gone."""
+    return list(_recent_series)
+
+
 class _NullSpan:
     """Reusable no-op context manager: disabled tracing allocates
     nothing per phase."""
@@ -399,8 +469,13 @@ class Tracer:
     ``with tracer.span("dispatch"): ...`` records one complete ("ph":
     "X") event; ``to_json()`` / ``dump(path)`` emit the
     ``{"traceEvents": [...]}`` JSON that Perfetto and chrome://tracing
-    load directly.  Events are bounded (``max_events``, oldest dropped)
-    so an always-on tracer cannot grow without bound.  A disabled tracer
+    load directly.  Events are stamped in microseconds of
+    ``time.perf_counter()``; ``otherData.perf_counter_to_unix_ns``,
+    read when the JSON is written, is what to add to ``ts * 1e3`` to get
+    the Unix-epoch nanoseconds that torch.profiler stamps device events
+    with, so the two traces of one run line up.  Events are bounded
+    (``max_events``, oldest dropped) so an always-on tracer cannot grow
+    without bound.  A disabled tracer
     (``enabled=False``, or the shared `NULL_TRACER`) returns a no-op
     span: the instrumentation sites cost one attribute check.
     """
@@ -415,7 +490,6 @@ class Tracer:
         self._lock = (_make_lock("Tracer._lock") if enabled
                       else threading.Lock())
         self._events: deque = deque(maxlen=max_events)
-        self._epoch = time.perf_counter()
 
     def span(self, name: str):
         if not self.enabled:
@@ -426,7 +500,7 @@ class Tracer:
         ev = {
             "name": name, "ph": "X", "pid": 1,
             "tid": threading.get_ident() & 0xFFFF,
-            "ts": (t0 - self._epoch) * 1e6,
+            "ts": t0 * 1e6,
             "dur": (t1 - t0) * 1e6,
         }
         with self._lock:
@@ -438,7 +512,7 @@ class Tracer:
             return
         ev = {"name": name, "ph": "i", "s": "g", "pid": 1,
               "tid": threading.get_ident() & 0xFFFF,
-              "ts": (time.perf_counter() - self._epoch) * 1e6}
+              "ts": time.perf_counter() * 1e6}
         if args:
             ev["args"] = args
         with self._lock:
@@ -456,7 +530,10 @@ class Tracer:
     def to_json(self) -> str:
         with self._lock:
             events = list(self._events)
-        return json.dumps({"traceEvents": events, "displayTimeUnit": "ms"})
+        offset = time.time_ns() - time.perf_counter_ns()
+        return json.dumps({"traceEvents": events, "displayTimeUnit": "ms",
+                           "otherData": {"clock": "perf_counter",
+                                         "perf_counter_to_unix_ns": offset}})
 
     def dump(self, path: str) -> None:
         with open(path, "w") as f:
@@ -499,6 +576,8 @@ class PoolObservability:
         ``spartus_sessions_lost_total``   sessions failed by recovery
         ``spartus_checkpoints_total``     pool checkpoints written
         ``spartus_sessions_restored_total``  sessions restored from ckpt
+        ``spartus_kernel_{calls,fired,union,staged}_total{kernel=,layer=}``
+                                          the pool engine's launch counters
     gauges
         ``spartus_occupancy``             occupied slots at the boundary
         ``spartus_active_fraction``       active slots / capacity
@@ -514,6 +593,7 @@ class PoolObservability:
         ``spartus_chunk_seconds``         full boundary wall time
         ``spartus_chunk_advance_frames``  frames advanced per chunk
         ``spartus_restore_seconds``       checkpoint/restore wall time
+        ``spartus_tick_handoff_seconds``  async tick's thread hand-off
     """
 
     def __init__(self, registry: Optional[MetricsRegistry] = None,
@@ -521,6 +601,7 @@ class PoolObservability:
                  tracer: Optional[Tracer] = None):
         self.registry = registry if registry is not None else MetricsRegistry()
         self.timeseries = TimeSeries(timeseries_len)
+        _recent_series.append(self.timeseries)
         self.tracer = tracer if tracer is not None else NULL_TRACER
         r = self.registry
         self.c_dispatches = r.counter(
@@ -592,7 +673,15 @@ class PoolObservability:
         self.h_restore = r.histogram(
             "spartus_restore_seconds",
             "checkpoint snapshot / restore wall time")
+        self.h_handoff = r.histogram(
+            "spartus_tick_handoff_seconds",
+            "async tick: submit to worker start plus worker end to loop "
+            "resume", buckets=HANDOFF_BUCKETS)
         self._fault_counters: Dict[str, Counter] = {}
+        # the launch counters: last fetched [L, 4] totals and the
+        # per-layer registry counters, made on first sight
+        self._last_kernel_counts: Optional[np.ndarray] = None
+        self._kernel_counters: Dict[Tuple[int, str], List[Counter]] = {}
         # boundary-fold state: the previous boundary's (not-yet-fetched)
         # telemetry totals and the last fetched values for diffing.
         self._chunk_seq = 0
@@ -670,23 +759,62 @@ class PoolObservability:
     # -- the per-boundary fold ----------------------------------------------
 
     def _diff_totals(self, new_totals: Optional[Any]
-                     ) -> Tuple[float, float, float]:
+                     ) -> Tuple[Tuple[float, float, float], Dict[str, int]]:
         """Resolve the PREVIOUS boundary's enqueued telemetry totals (its
         chunk has since completed, so this fetch does not sync on the
         in-flight dispatch), diff against the running values, and enqueue
         ``new_totals`` for the next boundary.  Returns the window's
-        (temporal_sparsity, overflow_rate, steps)."""
+        (temporal_sparsity, overflow_rate, steps) and its launch-counter
+        increments (`_diff_kernels`): a source whose ``kernel_counts()``
+        gives the engines' ``[L, 4]`` totals, staged in the same copy,
+        brings them along."""
         inc = (0.0, 0.0, 0.0)
-        if self._pending_totals is not None:
-            now = _host_values(self._pending_totals)
+        kinc = {f"{k}_{f}_inc": 0 for k in KERNELS for f in KERNEL_FIELDS}
+        pend = self._pending_totals
+        if pend is not None:
+            now = _host_values(pend)
             d = now - self._last_totals
             self._last_totals = now
             d_steps = d[2]
             if d_steps > 0:
                 inc = (float(1.0 - d[0] / d_steps),
                        float(d[1] / d_steps), float(d_steps))
+            counts = getattr(pend, "kernel_counts", None)
+            if counts is not None:
+                self._diff_kernels(counts(), pend.kernels, kinc)
         self._pending_totals = new_totals
-        return inc
+        return inc, kinc
+
+    def _diff_kernels(self, now: Optional[np.ndarray],
+                      kernels: Sequence[str], inc: Dict[str, int]) -> None:
+        """Fold fetched launch-counter totals ``now [L, 4]`` (layer l's
+        product is ``kernels[l]``): the per-layer registry counters grow
+        by the increments, and ``inc`` gets them summed over layers."""
+        if now is None:
+            return
+        now = np.asarray(now, np.int64)
+        last = self._last_kernel_counts
+        # totals below the last ones: a new pool's counters (recovery)
+        restart = (last is None or last.shape != now.shape
+                   or bool((now < last).any()))
+        d = now if restart else now - last
+        self._last_kernel_counts = now
+        for layer, kernel in enumerate(kernels):
+            key = (layer, kernel)
+            counters = self._kernel_counters.get(key)
+            if counters is None:
+                counters = self._kernel_counters[key] = [
+                    self.registry.counter(
+                        f"spartus_kernel_{field}_total",
+                        f"launch counters of the pool's sparse products: "
+                        f"{field}",
+                        labels={"kernel": kernel, "layer": str(layer)})
+                    for field in KERNEL_FIELDS]
+            for i, (field, c) in enumerate(zip(KERNEL_FIELDS, counters)):
+                n = int(d[layer, i])
+                if n > 0:
+                    c.inc(n)
+                    inc[f"{kernel}_{field}_inc"] += n
 
     def fold_chunk(
         self, *,
@@ -705,12 +833,15 @@ class PoolObservability:
         """Fold one dispatch boundary into counters, gauges and the time
         series.  Every argument is a host value the pool computed anyway;
         ``telemetry_totals`` is the (device, un-fetched) [3] reduction of
-        the `[L, B]` accumulators after this chunk — it is only *fetched*
-        at the next boundary.  Returns the appended sample (the async
+        the `[L, B]` accumulators after this chunk, with the engines'
+        launch counters when they count — it is only *fetched* at the
+        next boundary.  Returns the appended sample (the async
         driver amends it with loop-side fields via
         ``timeseries.update_last``)."""
         self._chunk_seq += 1
-        sp_inc, ovf_inc, steps_inc = self._diff_totals(telemetry_totals)
+        t_mono = time.perf_counter()
+        (sp_inc, ovf_inc, steps_inc), kernel_inc = self._diff_totals(
+            telemetry_totals)
         self.c_dispatches.inc()
         self.c_frames.inc(frames_advanced)
         self.g_occupancy.set(occupancy)
@@ -734,6 +865,7 @@ class PoolObservability:
         sample: Dict[str, Any] = {
             "chunk": self._chunk_seq,
             "t_wall": time.time(),
+            "t_mono": t_mono,
             "occupancy": occupancy,
             "active_frac": n_active / capacity if capacity else 0.0,
             "frames": frames_advanced,
@@ -752,6 +884,12 @@ class PoolObservability:
             "temporal_sparsity_inc": sp_inc,
             "overflow_rate_inc": ovf_inc,
             "samples_inc": steps_inc,
+            # the async server's thread hand-off for this tick, amended
+            # after the tick returns (0.0 where the tick ran inline)
+            "handoff_s": 0.0,
+            # launch counters of the same (previous) window, per kernel
+            # summed over layers and shards: <kernel>_<field>_inc
+            **kernel_inc,
         }
         self.timeseries.append(sample)
         if self.timeseries.n_dropped > dropped_before:

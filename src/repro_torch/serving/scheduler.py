@@ -51,6 +51,7 @@ the least-loaded shard.  The devices may be one card N times
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import time
 from collections import deque
@@ -61,6 +62,7 @@ import torch
 
 from repro_torch._device import HostCopy, upload
 from repro_torch.analysis import lockorder
+from repro_torch.kernels import counters as kcount
 from repro_torch.serving import sharding as shardlib
 from repro_torch.serving import telemetry as tele
 from repro_torch.serving.batched_engine import BatchedSpartusEngine, PoolState
@@ -221,16 +223,28 @@ class _PendingPartials:
 
 
 class _SummedCopies:
-    """``wait()``: the host sum of the tensors one `HostCopy` staged (the
-    shards' telemetry totals, read by the observability fold)."""
+    """What the observability fold reads of one `HostCopy`: ``wait()``,
+    the host sum of its first ``n_totals`` tensors (the shards'
+    telemetry totals), and ``kernel_counts()``, the sum of the rest (the
+    engines' ``[L, 4]`` launch counters, layer l's product
+    ``kernels[l]``; None when nothing counts)."""
 
-    def __init__(self, copy: HostCopy):
-        self.copy = copy
+    def __init__(self, copy: HostCopy, n_totals: int,
+                 kernels: Sequence[str] = ()):
+        self.copy, self.n_totals, self.kernels = copy, n_totals, kernels
+
+    def _parts(self) -> List[np.ndarray]:
+        host = self.copy.wait()
+        return [np.asarray(p) for p in
+                ([host] if isinstance(host, torch.Tensor) else host)]
 
     def wait(self) -> np.ndarray:
-        host = self.copy.wait()
-        parts = [host] if isinstance(host, torch.Tensor) else host
-        return sum(np.asarray(p, np.float64) for p in parts)
+        totals = self._parts()[:self.n_totals]
+        return sum(p.astype(np.float64) for p in totals)
+
+    def kernel_counts(self) -> Optional[np.ndarray]:
+        counts = self._parts()[self.n_totals:]
+        return sum(counts) if counts else None
 
 
 def _host_list(copy: HostCopy) -> List[np.ndarray]:
@@ -439,14 +453,25 @@ class SessionPool:
         self._staged_appends: List[Tuple[int, int, np.ndarray]] = []
         self.n_frame_grows = 0
         self.n_dispatches = 0
-        self._overlap_fracs: List[float] = []
+        # host_overlap_frac of every chunk, as a running sum and count
+        self._overlap_sum = 0.0
+        self._overlap_n = 0
         # live observability (metrics.PoolObservability): folded at
         # dispatch boundaries only, on host values; None = off
         self.obs = observability
         self._tracer = (observability.tracer if observability is not None
                         else NULL_TRACER)
         self._adm_since_fold = 0
+        if observability is not None:
+            for sh in self._shards:          # the launch counters, which
+                sh.engine.count_kernels()    # count inside _counting()
         self._state_lock = lockorder.make_lock("SessionPool._state_lock")
+
+    def _counting(self):
+        """Where the dispatch runs: its engines count their launches when
+        this pool has observability, and not otherwise."""
+        return (kcount.counting() if self.obs is not None
+                else contextlib.nullcontext())
 
     def _fire(self, site: str) -> None:
         """Fault-injection hook: raise if the plan scheduled a failure at
@@ -801,8 +826,9 @@ class SessionPool:
             raise RuntimeError(
                 "this pool was built with chunk_frames >= 1; "
                 "drive it with step_chunk()/flush(), not step()")
-        self._reap_cancelled()
-        active, reset = self._masks()
+        with self._tracer.span("slot_bookkeeping"):
+            self._reap_cancelled()
+            active, reset = self._masks()
         if not active.any():
             return []
         with self._tracer.span("admission_upload"):
@@ -812,11 +838,11 @@ class SessionPool:
         with self._state_lock:
             shards = [(sh.engine, sh.lo, sh.hi, sh.state, sh.frames)
                       for sh in self._shards]
-        with self._tracer.span("dispatch"):
+        with self._tracer.span("dispatch"), self._counting():
             logits = [eng.step_frames(state, frames, active[lo:hi],
                                       reset[lo:hi])[1]
                       for eng, lo, hi, state, frames in shards]
-        with self._state_lock:
+        with self._tracer.span("partials_stage"), self._state_lock:
             self._tele_copy = self._stage_telemetry()
         self.n_dispatches += 1
         t_dispatched = time.perf_counter()
@@ -825,31 +851,33 @@ class SessionPool:
             logits_np = _join_slots(_host_list(HostCopy(*logits)))
             self._resolve_telemetry()              # landed before logits
         finished: List[RequestResult] = []
-        for k, sess in enumerate(self._slots):
-            if sess is None:
-                continue
-            sess.needs_reset = False
-            if not active[k]:
-                continue
-            row = logits_np[k].copy()
-            sess.rows.append(row)
-            if not sess.first_logit_wall:
-                sess.first_logit_wall = time.perf_counter()
-            if self.stream_partials:
-                self._partials.append(PartialLogits(
-                    req_id=sess.req_id, t0=sess.cursor, rows=row[None]))
-            sess.cursor += 1
-            sess.last_step = now
-            if sess.done:
-                finished.append(sess.result(np.stack(sess.rows)))
-                self._free(k)
+        with self._tracer.span("slot_bookkeeping"):
+            for k, sess in enumerate(self._slots):
+                if sess is None:
+                    continue
+                sess.needs_reset = False
+                if not active[k]:
+                    continue
+                row = logits_np[k].copy()
+                sess.rows.append(row)
+                if not sess.first_logit_wall:
+                    sess.first_logit_wall = time.perf_counter()
+                if self.stream_partials:
+                    self._partials.append(PartialLogits(
+                        req_id=sess.req_id, t0=sess.cursor, rows=row[None]))
+                sess.cursor += 1
+                sess.last_step = now
+                if sess.done:
+                    finished.append(sess.result(np.stack(sess.rows)))
+                    self._free(k)
         if self.obs is not None:
-            self.obs.fold_results(finished)
-            self._fold_boundary(
-                n_active=int(active.sum()), frames=int(active.sum()),
-                dispatch_s=t_dispatched - t0,
-                chunk_s=time.perf_counter() - t0,
-                overlap=0.0, retirements=len(finished))
+            with self._tracer.span("obs_fold"):
+                self.obs.fold_results(finished)
+                self._fold_boundary(
+                    n_active=int(active.sum()), frames=int(active.sum()),
+                    dispatch_s=t_dispatched - t0,
+                    chunk_s=time.perf_counter() - t0,
+                    overlap=0.0, retirements=len(finished))
         return finished
 
     # -- chunked tick loop ---------------------------------------------------
@@ -880,14 +908,18 @@ class SessionPool:
         if not self.chunk_frames:
             raise RuntimeError(
                 "this pool was built with chunk_frames=0; use step()")
-        self._reap_cancelled()
+        with self._tracer.span("slot_bookkeeping"):
+            self._reap_cancelled()
         self._queue_done_retirements()
-        active, reset = self._masks()
-        if not active.any():
+        with self._tracer.span("slot_bookkeeping"):
+            active, reset = self._masks()
+            busy = active.any()
+            if busy:
+                n = self._chunk_len()
+                starts = np.array([0 if s is None else s.cursor
+                                   for s in self._slots], np.int32)
+        if not busy:
             return self.flush()
-        n = self._chunk_len()
-        starts = np.array([0 if s is None else s.cursor
-                           for s in self._slots], np.int32)
         with self._tracer.span("admission_upload"):
             self._flush_uploads()
         self._fire("dispatch")
@@ -896,11 +928,11 @@ class SessionPool:
             shards = list(self._shards)
             args = [(sh.state, sh.frames, sh.lengths, active[sh.lo:sh.hi],
                      reset[sh.lo:sh.hi], sh.out) for sh in shards]
-        with self._tracer.span("dispatch"):
+        with self._tracer.span("dispatch"), self._counting():
             states, outs = shardlib.dispatch_chunk(
                 *zip(*args), engines=[sh.engine for sh in shards],
                 n_frames=n)
-        with self._state_lock:
+        with self._tracer.span("partials_stage"), self._state_lock:
             for sh, state, out in zip(shards, states, outs):
                 sh.state, sh.out = state, out
             tele_copy = self._stage_telemetry()
@@ -911,24 +943,25 @@ class SessionPool:
         retiring: List[int] = []
         partial_slots: List[int] = []
         frames_this = 0
-        for k, sess in enumerate(self._slots):
-            if sess is None:
-                continue
-            sess.needs_reset = False
-            adv = min(n, sess.available)
-            if adv <= 0:
-                continue
-            frames_this += adv
-            sess.cursor += adv
-            sess.last_step = now + adv - 1
-            if self.stream_partials and not sess.partials_paused:
-                partial_slots.append(k)
-            if sess.done:
-                retiring.append(k)
+        with self._tracer.span("slot_bookkeeping"):
+            for k, sess in enumerate(self._slots):
+                if sess is None:
+                    continue
+                sess.needs_reset = False
+                adv = min(n, sess.available)
+                if adv <= 0:
+                    continue
+                frames_this += adv
+                sess.cursor += adv
+                sess.last_step = now + adv - 1
+                if self.stream_partials and not sess.partials_paused:
+                    partial_slots.append(k)
+                if sess.done:
+                    retiring.append(k)
         newly: List[_PendingChunk] = []
         newly_partials: List[_PendingPartials] = []
         if retiring or partial_slots:
-            with self._state_lock:
+            with self._tracer.span("partials_stage"), self._state_lock:
                 newly = self._snapshot_retirees(retiring)
                 for sh in self._shards:
                     entries = [
@@ -940,26 +973,29 @@ class SessionPool:
                             entries=entries,
                             rows=sh.engine.snapshot_chunk(
                                 sh.out, starts[sh.lo:sh.hi], n_frames=n)))
-            for k in retiring:
-                self._free(k)
+            with self._tracer.span("slot_bookkeeping"):
+                for k in retiring:
+                    self._free(k)
         with self._tracer.span("snapshot_fetch"):
             finished = self._resolve()       # the PREVIOUS chunk's copies
         t_end = time.perf_counter()
-        with self._state_lock:
-            self._pending.extend(newly)
-            self._pending_partials.extend(newly_partials)
-            self._tele_copy = tele_copy
-
-        wall = t_end - t0
-        overlap = 0.0
-        if wall > 0:
-            overlap = (t_end - t_dispatched) / wall
-            self._overlap_fracs.append(overlap)
+        with self._tracer.span("slot_bookkeeping"):
+            with self._state_lock:
+                self._pending.extend(newly)
+                self._pending_partials.extend(newly_partials)
+                self._tele_copy = tele_copy
+            wall = t_end - t0
+            overlap = 0.0
+            if wall > 0:
+                overlap = (t_end - t_dispatched) / wall
+                self._overlap_sum += overlap
+                self._overlap_n += 1
         if self.obs is not None:
-            self._fold_boundary(
-                n_active=int(active.sum()), frames=frames_this,
-                dispatch_s=t_dispatched - t0, chunk_s=wall,
-                overlap=overlap, retirements=len(finished))
+            with self._tracer.span("obs_fold"):
+                self._fold_boundary(
+                    n_active=int(active.sum()), frames=frames_this,
+                    dispatch_s=t_dispatched - t0, chunk_s=wall,
+                    overlap=overlap, retirements=len(finished))
         return finished
 
     def _snapshot_retirees(self, slots: List[int]) -> List[_PendingChunk]:
@@ -984,19 +1020,22 @@ class SessionPool:
         (a stream finished after its last received frame was consumed, or
         with zero frames): stage their banked rows now; the results
         surface at the next resolve like any other retirement."""
-        slots = [k for k, sess in enumerate(self._slots)
-                 if sess is not None and sess.done]
+        with self._tracer.span("slot_bookkeeping"):
+            slots = [k for k, sess in enumerate(self._slots)
+                     if sess is not None and sess.done]
         if slots:
-            with self._state_lock:
+            with self._tracer.span("partials_stage"), self._state_lock:
                 self._pending.extend(self._snapshot_retirees(slots))
-            for k in slots:
-                self._free(k)
+            with self._tracer.span("slot_bookkeeping"):
+                for k in slots:
+                    self._free(k)
 
     def flush(self) -> List[RequestResult]:
         """Resolve retirements (and streamed partials) still pending from
         the last dispatched chunk (the double-buffer tail)."""
         if self.chunk_frames:
-            self._reap_cancelled()
+            with self._tracer.span("slot_bookkeeping"):
+                self._reap_cancelled()
             self._queue_done_retirements()
         return self._resolve()
 
@@ -1009,21 +1048,25 @@ class SessionPool:
         on the previous chunk's staged copies (per-frame mode waits for
         its own logits, as always)."""
         if self.chunk_frames:
-            adv = self.max_chunk_advance()
+            with self._tracer.span("slot_bookkeeping"):
+                adv = self.max_chunk_advance()
             if adv:
                 return self.step_chunk(now), adv
             return self.flush(), 0
-        self._reap_cancelled()
-        finished: List[RequestResult] = []
-        for k, sess in enumerate(self._slots):
-            if sess is not None and sess.done:
-                finished.append(sess.result(
-                    np.stack(sess.rows) if sess.rows else np.zeros(
-                        (0, self.engine.n_classes), np.float32)))
-                self._free(k)
+        with self._tracer.span("slot_bookkeeping"):
+            self._reap_cancelled()
+            finished: List[RequestResult] = []
+            for k, sess in enumerate(self._slots):
+                if sess is not None and sess.done:
+                    finished.append(sess.result(
+                        np.stack(sess.rows) if sess.rows else np.zeros(
+                            (0, self.engine.n_classes), np.float32)))
+                    self._free(k)
         if self.obs is not None:
-            self.obs.fold_results(finished)
-        active, _ = self._masks()
+            with self._tracer.span("obs_fold"):
+                self.obs.fold_results(finished)
+        with self._tracer.span("slot_bookkeeping"):
+            active, _ = self._masks()
         if active.any():
             return finished + self.step(now), 1
         return finished, 0
@@ -1088,10 +1131,15 @@ class SessionPool:
                        dispatch_s: float, chunk_s: float, overlap: float,
                        retirements: int) -> None:
         """One dispatch boundary's fold into the observability layer —
-        host values only, plus the telemetry totals staged to the host
-        behind this chunk, which the NEXT boundary's fold resolves."""
+        host values only, plus the telemetry totals and the engines'
+        launch counters, staged to the host in one copy behind this
+        chunk, which the NEXT boundary's fold resolves."""
         adm, self._adm_since_fold = self._adm_since_fold, 0
-        totals = _SummedCopies(HostCopy(*self.telemetry_totals()))
+        totals = self.telemetry_totals()
+        counters = self._kernel_counters()
+        totals = _SummedCopies(
+            HostCopy(*totals, *(c.counts for c in counters)), len(totals),
+            counters[0].kernels if counters else ())
         self.obs.fold_chunk(
             occupancy=self.n_active,
             capacity=self.capacity,
@@ -1114,7 +1162,7 @@ class SessionPool:
                 torch.cuda.synchronize(dev)
 
     def mean_host_overlap_frac(self) -> float:
-        return (float(np.mean(self._overlap_fracs)) if self._overlap_fracs
+        return (self._overlap_sum / self._overlap_n if self._overlap_n
                 else 0.0)
 
     def drain(self, now: int) -> List[RequestResult]:
@@ -1157,6 +1205,17 @@ class SessionPool:
                     for t in sh.state.telemetry]
         return tele.summarize(*_join_telemetry(host),
                               self.engine.n_cols)
+
+    def _kernel_counters(self) -> list:
+        """The launch counters of the shards' engines, each once (shards
+        on one device share their engine, and its counters)."""
+        out = {}
+        with self._state_lock:
+            for sh in self._shards:
+                if sh.engine.counters is not None:
+                    out.setdefault(id(sh.engine.counters),
+                                   sh.engine.counters)
+        return list(out.values())
 
     def telemetry_totals(self) -> List[torch.Tensor]:
         """Each shard's ``[3]`` running totals, reduced on its device (no

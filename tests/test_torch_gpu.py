@@ -1070,3 +1070,168 @@ def test_sharded_zoo_train_step_on_distinct_cards(cuda):
     *state, m2 = step(*state, batch)
     assert abs(float(m2["loss"]) - float(m1["loss"])) <= 1e-5 * abs(
         float(m1["loss"]))
+
+
+def _card_recount(monkeypatch):
+    """Wrap the ops entry points the benchmark wraps and recount each
+    call from its own inputs on the card: [calls, fired, union, staged]
+    per call, in call order."""
+    calls = []
+    mirror, spmv = ops._mirror_matmul, ops.stsp_spmv_batch
+
+    def counted_mirror(ds, wt, scale=None):
+        fired = ds != 0
+        b = ds.shape[0]
+        rows = next(r for r in (1, 2, 4, 8, 16, 32) if r >= min(b, 32))
+        staged = sum(int(fired[r:r + rows].any(0).sum())
+                     for r in range(0, b, rows))
+        calls.append([1, int(fired.sum()), int(fired.any(0).sum()), staged])
+        return mirror(ds, wt, scale)
+
+    def counted_spmv(val, lidx, idx, ds_vals, *, s, scale=None):
+        live = ds_vals != 0
+        n = int(live.sum())
+        calls.append([1, n, int(torch.unique(idx[live]).numel()), n])
+        return spmv(val, lidx, idx, ds_vals, s=s, scale=scale)
+
+    monkeypatch.setattr(ops, "_mirror_matmul", counted_mirror)
+    monkeypatch.setattr(ops, "stsp_spmv_batch", counted_spmv)
+    return calls
+
+
+@pytest.mark.parametrize("route", ["scatter", "dense"])
+@pytest.mark.parametrize("quant", [False, True])
+def test_launch_counters_on_card_equal_a_recount(cuda, monkeypatch, route,
+                                                 quant):
+    """The pool's launch counters on the card (the kernels' own atomics
+    and marks, the HPE's count of them) equal a recount from the same
+    calls' deltas and NZI lists, layer by layer, at a pool of 40 slots
+    (two passes of the mirror kernel's 32 rows); logits bit-identical with
+    counting on and off."""
+    from repro_torch.core import QuantConfig
+    from repro_torch.serving import PoolObservability
+
+    cfg = lstm_am.LSTMAMConfig(input_dim=20, hidden_dim=64, n_layers=2,
+                               n_classes=11)
+    params = lstm_am.cbtd_prune_stacks(
+        lstm_am.init_params(_gen(2), cfg, device="cpu"), gamma=0.75, m=8)
+    ecfg = EngineConfig(theta=0.05, gamma=0.75, m=8, spmv_path=route,
+                        capacity_frac=0.5,
+                        quant=QuantConfig() if quant else None)
+    rng = np.random.default_rng(6)
+    reqs = [(0, rng.standard_normal((t, 20)).astype(np.float32))
+            for t in rng.integers(8, 20, 50)]       # all there at once
+    plain, _ = serve_requests(BatchedSpartusEngine(params, cfg, ecfg,
+                                                   device=cuda), reqs, 40,
+                              chunk_frames=4)
+    engine = BatchedSpartusEngine(params, cfg, ecfg, device=cuda)
+    calls = _card_recount(monkeypatch)
+    got, _ = serve_requests(engine, reqs, 40, chunk_frames=4,
+                            observability=PoolObservability())
+    want = np.zeros((2, 4), np.int64)
+    for i, c in enumerate(calls):
+        want[i % 2] += c
+    np.testing.assert_array_equal(engine.counters.counts.cpu().numpy(), want)
+    assert int(engine.counters.marks.sum()) == 0
+    if route == "dense":
+        assert (want[:, 3] > want[:, 2]).all()       # 40 rows: two passes
+    for a, b in zip(got, plain):
+        assert np.array_equal(a.logits, b.logits)
+
+
+@pytest.mark.parametrize("route", ["scatter", "dense"])
+def test_launch_counters_survive_cuda_graph_replay(cuda, route):
+    """One pool ``step_chunk`` captured in a CUDA graph: the counters are
+    kept by the launches themselves, so n replays add n times one eager
+    chunk's counts (every slot reset at the chunk's start, so every chunk
+    does the same work), and the replay's logits equal the eager
+    chunk's."""
+    from repro_torch.kernels import counters as kcount
+
+    engine = _stream_model(cuda, route)
+    counters = engine.count_kernels()
+    b, t_buf, n = 6, 16, 4
+    state = engine.init_state(b)
+    frames = torch.randn((b, t_buf, 20), generator=_gen(5)).to(cuda)
+    lengths = torch.tensor([16, 3, 9, 16, 1, 12], dtype=torch.int32,
+                           device=cuda)
+    every = torch.ones((b,), dtype=torch.bool, device=cuda)
+    out = engine.init_out_buf(b, t_buf + n)
+
+    def chunk():
+        with kcount.counting():            # as a pool with observability
+            engine.step_chunk(state, frames, lengths, every, every, out,
+                              n_frames=n)
+
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):          # warm-up: builds and loads
+        chunk()
+    torch.cuda.current_stream().wait_stream(side)
+    before = counters.counts.clone()
+    chunk()
+    one = counters.counts - before
+    eager = out.clone()
+    assert one[:, 0].tolist() == [n, n] and (one[:, 2] > 0).all()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        chunk()
+    before = counters.counts.clone()
+    out.zero_()
+    for _ in range(5):
+        graph.replay()
+    torch.cuda.synchronize()
+    assert torch.equal(counters.counts - before, 5 * one)
+    assert int(counters.marks.sum()) == 0
+    assert torch.equal(out, eager)
+
+
+@pytest.mark.parametrize("b", [5, 40])
+@pytest.mark.parametrize("payload", ["fp32", "int8"])
+def test_counted_launches_equal_plain_ones(cuda, b, payload):
+    """The counted instantiations give the plain ones' outputs bit for
+    bit and count one call each: the dense mirror at 2x1024 layer 2's
+    shapes, and the CBCSC SpMV at BLEN 4 (counted, it runs the same
+    BLEN-4 loop); the HPE then counts the union."""
+    from repro_torch.kernels import counters as kcount
+
+    q, h = 2048, 4096
+    enc = _cbcsc(q, h, q, 64, 0.9375)
+    val, lidx = enc.val, enc.lidx
+    w = torch.randn((q, h), generator=_gen(b))
+    scale = None
+    if payload == "int8":
+        val, lidx, _ = _int8(val, lidx, enc.s)
+        scale = torch.tensor([2.0 ** -7], device=cuda)
+        w = w.clamp(-1, 1).mul(127).round().to(torch.int8)
+    fired = torch.rand((b, q), generator=_gen(b + 1)) < 0.2
+    delta = torch.where(fired, torch.randn((b, q), generator=_gen(b + 2)),
+                        0.0)
+    idx, vals, _ = ops.select_active_columns_batch(delta, q // 2)
+    live = vals != 0
+    d_delta, d_w = delta.to(cuda), w.to(cuda)
+    d_sp = [t.to(cuda) for t in (val, lidx, idx, vals)]
+    y0, z0 = dm.dense_mirror(d_delta, d_w, scale), \
+        sp.stsp_spmv_scatter_batch(*d_sp, s=enc.s)
+    counters = kcount.KernelCounters([q, q], ["dense_mirror", "stsp_spmv"],
+                                     cuda)
+    hpe = [torch.zeros((b, 64), device=cuda) for _ in range(2)]
+    try:
+        kcount.select(counters.layers[0])
+        y1 = dm.dense_mirror(d_delta, d_w, scale)
+        lp.lstm_pointwise_step(torch.zeros((b, 256), device=cuda),
+                               torch.zeros((b, 256), device=cuda), *hpe)
+        kcount.select(counters.layers[1])
+        z1 = sp.stsp_spmv_scatter_batch(*d_sp, s=enc.s)
+        lp.lstm_pointwise_step(torch.zeros((b, 256), device=cuda),
+                               torch.zeros((b, 256), device=cuda), *hpe)
+    finally:
+        kcount.select(None)
+    assert torch.equal(y0, y1) and torch.equal(z0, z1)
+    rows = min(32, 1 << (min(b, 32) - 1).bit_length())
+    staged = sum(int(fired[r:r + rows].any(0).sum())
+                 for r in range(0, b, rows))
+    assert counters.counts.tolist() == [
+        [1, int(fired.sum()), int(fired.any(0).sum()), staged],
+        [1, int(live.sum()), int(torch.unique(idx[live]).numel()),
+         int(live.sum())]]

@@ -34,6 +34,7 @@ from repro_torch.serving import AsyncSpartusServer as TServer
 from repro_torch.serving import BatchedSpartusEngine as TBatched
 from repro_torch.serving import EngineConfig as TConfig
 from repro_torch.serving import PoolObservability as TObs
+from repro_torch.serving.metrics import KERNEL_FIELDS, KERNELS
 
 REPO = Path(__file__).resolve().parents[1]
 INPUT_DIM, HIDDEN, CLASSES = 20, 32, 11
@@ -211,16 +212,30 @@ def test_line_too_long_closes_only_that_connection(conversations):
 
 
 def test_admin_commands_match_reference(conversations):
+    """The reference's replies, metrics and sample keys, and besides them
+    only the port's own: the pool engine's launch counters (four per
+    layer), the tick's hand-off histogram, and the samples' clock, hand-off
+    and counter increments."""
     (_, jadmin, *_), (_, tadmin, *_) = conversations
     assert [sorted(m) for m in tadmin] == [sorted(m) for m in jadmin]
     health, stats, metrics, ts, bad, not_obj = tadmin
     assert health["ok"] is True and health["capacity"] == 2
     assert sorted(stats["stats"]) == sorted(jadmin[1]["stats"])
     assert stats["stats"]["n_requests"] == 2
-    assert sorted(metrics["metrics"]) == sorted(jadmin[2]["metrics"])
+    counters = {m for m in metrics["metrics"]
+                if m.startswith("spartus_kernel_")}
+    assert len(counters) == len(KERNEL_FIELDS) * 2
+    port_only = counters | {"spartus_tick_handoff_seconds"}
+    assert sorted(set(metrics["metrics"]) - port_only) == \
+        sorted(jadmin[2]["metrics"])
+    assert port_only <= set(metrics["metrics"])
     assert "# TYPE spartus_frames_total counter" in metrics["prometheus"]
     assert 0 < len(ts["timeseries"]) <= 3 and ts["n_appended"] > 0
-    assert sorted(ts["timeseries"][0]) == sorted(jadmin[3]["timeseries"][0])
+    sample_only = {"t_mono", "handoff_s"} | {
+        f"{k}_{f}_inc" for k in KERNELS for f in KERNEL_FIELDS}
+    assert sorted(set(ts["timeseries"][0]) - sample_only) == \
+        sorted(jadmin[3]["timeseries"][0])
+    assert sample_only <= set(ts["timeseries"][0])
     assert "error" in bad and "error" in not_obj
 
 

@@ -62,6 +62,23 @@ OLD_SIGNATURES = {
                              _F, _F, _P],
     "spartus_lstm_pointwise": [_I, _P, _P, _P, _P, _I, _I, _P],
 }
+# the entry points of sources from before the launch counters, which take
+# no counters' pointers before the stream
+_OLD_SPMV = [_I, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P]
+UNCOUNTED_SIGNATURES = {
+    "spartus_lstm_pointwise_step": [_I, _P, _P, _P, _P, _P, _P, _P, _P, _I,
+                                    _I, _P],
+    **{f"spartus_stsp_spmv_{tags}": _OLD_SPMV
+       for tags in ("f32_i32", "f32_i8", "i8_i32", "i8_i8")},
+    "spartus_dense_mirror_f32": [_I, _P, _P, _P, _P, _I, _I, _I, _P],
+    "spartus_dense_mirror_i8": [_I, _P, _P, _P, _P, _I, _I, _I, _P],
+}
+
+
+def no_counters(lib, *nulls):
+    """The null counter arguments a source's entry point takes: ``nulls``
+    where it has the launch counters, nothing before them."""
+    return nulls if lib.counted else ()
 
 
 def build(specs):
@@ -88,7 +105,12 @@ def build(specs):
                 sys.exit(f"nvcc failed on {spec}:\n{err[-3000:]}")
             lib.with_suffix(".log").write_text(out + err)
         handle = ctypes.CDLL(str(lib))
-        for name, args in {**_build.SIGNATURES, **OLD_SIGNATURES}.items():
+        handle.counted = b"long long* counts" in Path(
+            spec.split(":")[0]).read_bytes()
+        signatures = {**_build.SIGNATURES, **OLD_SIGNATURES}
+        if not handle.counted:
+            signatures.update(UNCOUNTED_SIGNATURES)
+        for name, args in signatures.items():
             if hasattr(handle, name):
                 getattr(handle, name).argtypes = args
                 getattr(handle, name).restype = ctypes.c_int
@@ -175,7 +197,7 @@ def spmv_setup(torch, label, args, s, host):
         def call():
             return fn(0, v.data_ptr(), l.data_ptr(), ii.data_ptr(),
                       dd.data_ptr(), y.data_ptr(), b, k, q, m, blen, s,
-                      stream)
+                      *no_counters(lib, None, None), stream)
 
         return call, lambda: torch.equal(y.cpu(), host)
     return setup
@@ -273,7 +295,8 @@ def lstm_pointwise_setup(torch, lp, dm0, y, c0, h0):
                 return lib.spartus_lstm_pointwise_step(
                     0, dm.data_ptr(), y.data_ptr(), c.data_ptr(),
                     active.data_ptr(), h_out.data_ptr(), dm.data_ptr(),
-                    c.data_ptr(), h.data_ptr(), b, hidden, stream)
+                    c.data_ptr(), h.data_ptr(), b, hidden,
+                    *no_counters(lib, None, 0, None), stream)
             state = [dm, c, h]
         else:
             dm_new = dm0 + y
@@ -331,7 +354,7 @@ def dense_mirror_setup(torch, label, ds, wt, scale, want):
 
         def call():
             return fn(0, ds.data_ptr(), wt.data_ptr(), sc, y.data_ptr(), b,
-                      q, n, stream)
+                      q, n, *no_counters(lib, None, None), stream)
 
         return call, lambda: torch.equal(y, want), lambda: y.clone()
     return setup
