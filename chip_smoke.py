@@ -20,13 +20,15 @@ Phases; any failure exits non-zero before a result line is printed:
 1. Device: the card's name and power limit (``nvidia-smi``).  Exits 1
    when ``torch.cuda.is_available()`` is false.
 2. Build and kernels: builds the CUDA kernels from ``src/repro_torch/
-   kernels/csrc`` with nvcc, then holds each of the five kernels against
+   kernels/csrc`` with nvcc, then holds each of the six kernels against
    its plain PyTorch version on the card at the serving shapes of the
    paper's 2x1024 DeltaLSTM: the dense-mirror product ``torch.equal`` to
    its float64 plain version (any element that differs fails, printed
    with its ulps) at B = 1, 4, 8, 16 and 32 on both layers, fp32 and
    int8 packs, 30% and 5% of the deltas fired, each row equal to the
-   same row alone; the fused IPU and HPE
+   same row alone; the capacity clip's ``ds`` and ``n_dropped`` bit for
+   bit at B = 1, 4, 8, 16 and 32 on both layers, on served traffic and
+   on overflow with ties; the fused IPU and HPE
    layer-step stages
    bit for bit (``torch.equal``, 12 of 16 slots active, state updated in
    place), the reference's call shapes at 1e-6 with exact fired counts,
@@ -100,7 +102,7 @@ Phases; any failure exits non-zero before a result line is printed:
    ``repro_torch.examples.delta_transformer_decode`` at its published
    sizes.
 7. The model zoo (``repro_torch.models.api``, plain PyTorch ops: the
-   reference's zoo reaches no Pallas kernel, and none of the five
+   reference's zoo reaches no Pallas kernel, and none of the six
    kernels launches here).  ``qwen2-0.5b``, ``granite-moe-1b-a400m``,
    ``mamba2-130m`` and ``seamless-m4t-medium`` at full width, fp32
    weights drawn on the card from a seeded generator: 32 greedy decode
@@ -117,7 +119,7 @@ Phases; any failure exits non-zero before a result line is printed:
    1e-4 relative), and the launcher's ``--arch qwen2-0.5b --batch 4
    --steps 32`` as a subprocess.  JSON: ``<out>/chip_smoke_zoo.json``.
 8. The model zoo's trainer (``repro_torch.launch.{train,steps}``,
-   ``data/lm.py``; plain PyTorch, none of the five kernels launches):
+   ``data/lm.py``; plain PyTorch, none of the six kernels launches):
    ``qwen2-0.5b``, ``granite-moe-1b-a400m``, ``mamba2-130m`` and
    ``seamless-m4t-medium`` at full width, fp32, AdamW, B=8, S=256, remat
    on.  Per arch: step 1's gradients (every leaf nonzero), one
@@ -169,7 +171,7 @@ Phases; any failure exits non-zero before a result line is printed:
    card, the bytes placed on each mesh device, which must equal the dry
    run's per-device count for that mesh exactly
    (``launch/dryrun.py``, fp32), and the dry run's FLOPs of one replica's
-   step beside phase 8's ``train_step_flops``.  None of the five kernels
+   step beside phase 8's ``train_step_flops``.  None of the six kernels
    launches (path ``sharded_train``).  JSON:
    ``<out>/chip_smoke_sharded_train.json``.
 11. Prints the card's name and power limit, ``{"kernels": [...]}`` and
@@ -216,6 +218,9 @@ TRAINED_ROUTES = ("auto", "scatter")
 # kernel is also held against its plain version there in phase 2
 SHARD_BATCHES = (CAPACITY // 2, CAPACITY // 4)
 MIRROR_BATCHES = (1, *sorted(SHARD_BATCHES), CAPACITY, 2 * CAPACITY)
+# the bulk bench's pool size (bench/traffic/bulk.json's server capacity):
+# the capacity clip is also held against its plain version there
+BULK_POOL = 1024
 # the dense-mirror kernel's fired shares in phase 2: 30%, and the served
 # model's ~5% (the trained 2x1024 model's temporal sparsity is 0.955)
 MIRROR_SHARES = (0.3, 0.05)
@@ -350,6 +355,7 @@ def bound_ms(n_bytes: float) -> float:
 
 def kernel_counters():
     """Every kernel wrapper's launch counter, by kernel name."""
+    from repro_torch.kernels import capacity_clip as cc
     from repro_torch.kernels import delta_encode as de
     from repro_torch.kernels import dense_mirror as dm
     from repro_torch.kernels import lstm_pointwise as lp
@@ -357,7 +363,8 @@ def kernel_counters():
 
     return {"delta_encode": de.KERNEL, "lstm_pointwise": lp.KERNEL,
             "stsp_spmv_scatter_batch": sp.SCATTER_BATCH_KERNEL,
-            "stsp_spmv": sp.KERNEL, "dense_mirror": dm.KERNEL}
+            "stsp_spmv": sp.KERNEL, "dense_mirror": dm.KERNEL,
+            "capacity_clip": cc.KERNEL}
 
 
 def zero_counts(counters) -> None:
@@ -781,6 +788,77 @@ def mirror_case(torch, ds, wt, scale, alone, name: str, library: bool):
     return case
 
 
+def clip_checks(torch, layers, seed: int):
+    """The capacity clip kernel on both layers' Q of the 2x1024 model at
+    B = 1, phase 9's shard batches, 16, 32 and the bulk bench's 1024, on
+    served traffic (12% of the deltas fired, the capacity half of Q:
+    nothing clipped) and on overflow (60% fired at a twentieth of Q,
+    magnitudes drawn from a few values so ties straddle the threshold):
+    ``ds`` and ``n_dropped`` equal to the plain version's bit for bit on
+    the card and on the host.
+    The main row is layer 2, B=16, served traffic; the plain version is
+    the torch chain the dense route ran before the kernel."""
+    from repro_torch.kernels import capacity_clip as cc
+
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(seed)
+    cases = []
+    for layer_no in (2, 1):
+        q = layers[layer_no - 1].input_dim + layers[layer_no - 1].hidden_dim
+        for label, share, capacity in (("served 12%", 0.12, (q + 1) // 2),
+                                       ("overflow 60%", 0.6, q // 20)):
+            for b in (*MIRROR_BATCHES, BULK_POOL):
+                tied = torch.tensor([-1.0, -0.5, 0.25, 0.5, 1.0],
+                                    device=dev)[torch.randint(
+                                        0, 5, (b, q), generator=g,
+                                        device=dev)]
+                vals = torch.where(torch.rand((b, q), generator=g,
+                                              device=dev) < 0.5, tied,
+                                   torch.randn((b, q), generator=g,
+                                               device=dev))
+                delta = torch.where(torch.rand((b, q), generator=g,
+                                               device=dev) < share, vals, 0.0)
+                run = lambda: cc.capacity_clip(delta, capacity)  # noqa: E731
+                plain = lambda: cc.plain(delta, capacity)        # noqa: E731
+                name = f"layer {layer_no} {label} B={b} Q={q}"
+                got = run()
+                for where, want in (("card", plain()),
+                                    ("host", cc.plain(delta.cpu(),
+                                                      capacity))):
+                    check(torch.equal(got[0].cpu().view(torch.int32),
+                                      want[0].cpu().view(torch.int32))
+                          and torch.equal(got[1].cpu(), want[1].cpu()),
+                          f"capacity_clip {name}: differs from the plain "
+                          f"version on the {where}")
+                n_bytes = 2 * b * q * 4 + b * 4
+                cases.append({
+                    "case": name, "max_abs_err": 0.0,
+                    "ms": time_ms(torch, run),
+                    "kernel_device_ms": device_ms(torch, run,
+                                                  "capacity_clip_topk"),
+                    "plain_ms": time_ms(torch, plain, iters=20),
+                    "plain_device_ms": device_ms(torch, plain, ""),
+                    "bytes": n_bytes, "bound_ms": bound_ms(n_bytes),
+                    "bound_by": "bytes",
+                    "library_ms": None, "library_device_ms": None,
+                })
+    check(cc.KERNEL.launches > 0, "capacity_clip: kernel was not launched")
+    main = next(c for c in cases
+                if c["case"].startswith(f"layer 2 served 12% B={CAPACITY} "))
+    print(f"kernel capacity_clip main [{main['case']}]: kernel_device_ms "
+          f"{main['kernel_device_ms']} plain_device_ms "
+          f"{main['plain_device_ms']} bound_ms {main['bound_ms']:.6f}",
+          flush=True)
+    return {"capacity_clip": dict(
+        main, route="cuda",
+        source="src/repro_torch/kernels/csrc/spartus_kernels.cu",
+        replaces="src/repro/kernels/ops.py:380",
+        note="replaces the count and the lax.cond-guarded top_k clip in "
+             "delta_spmv_dense_topk_batch, which the port ran as a chain "
+             "of PyTorch calls: not the port of a TPU kernel",
+        cases=cases)}
+
+
 # -- phase 3: serving at full width -----------------------------------------
 
 
@@ -856,7 +934,7 @@ def serving_runs(torch, params, am_cfg, rng, out_dir: Path):
             if not all(dense):
                 need.append(spmv[path])
             if any(dense):
-                need.append("dense_mirror")
+                need += ["dense_mirror", "capacity_clip"]
             for name in need:
                 check(by_name[name] > 0,
                       f"{label}: {name} never launched on the {path} path")
@@ -1376,7 +1454,7 @@ def streaming_runs(torch, params, am_cfg, rng, out_dir: Path):
         if not all(dense):
             need.append("stsp_spmv_scatter_batch")
         if any(dense):
-            need.append("dense_mirror")
+            need += ["dense_mirror", "capacity_clip"]
         for name in need:
             check(counts[name] > 0,
                   f"stream {route}: {name} never launched on the stream path")
@@ -3125,6 +3203,7 @@ def main() -> int:
     ).layers
     rows = kernel_checks(torch, layers, args.seed)
     rows.update(mirror_checks(torch, params, am_cfg, args.seed))
+    rows.update(clip_checks(torch, layers, args.seed))
     for name, row in rows.items():
         for case in [row] + row.get("cases", []):
             for key in ("kernel_device_ms", "library_device_ms"):

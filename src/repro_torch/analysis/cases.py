@@ -405,10 +405,9 @@ def served_cases(*, width: str = "test",
     them (``EngineConfig().capacity_frac``, below every layer's Q), where
     the reference's cases (capacity 1.0) never clip: the dense-mirror
     chunk in fp32 and int8, the scatter chunk, and the dense route's op
-    in fp32 and int8.  The dense-mirror chunks are held to the port's own
-    ``sort`` clause (``contracts.served_clip_budget``) instead of the
-    reference's ``sort: 0``; every other clause is the contract's."""
-    from repro_torch.analysis import contracts
+    in fp32 and int8.  The dense-mirror chunks are held to the reference's
+    ``sort: 0``, as its dense-mirror chunk cases are; every other clause
+    is the contract's."""
     from repro_torch.serving import EngineConfig
 
     w = WIDTHS[width]
@@ -419,20 +418,13 @@ def served_cases(*, width: str = "test",
         return functools.partial(fn, w, dev, *args, capacity_frac=frac,
                                  **kwargs)
 
-    def clip_budget(quant: bool) -> Dict[str, int]:
-        layers = _engine(w, dev, "auto", quant, frac).layers
-        return contracts.served_clip_budget(
-            sum(lyr.w_dense_t is not None
-                and lyr.capacity < lyr.w_dense_t.shape[0] for lyr in layers),
-            w.chunk)
-
     return [
         ContractCase("step_chunk/dense-mirror@served", "step_chunk",
                      at(_built_step_chunk, "auto"),
-                     op_budget_override=clip_budget(False)),
+                     op_budget_override={"sort": 0}),
         ContractCase("step_chunk/quant-int8@served", "step_chunk",
                      at(_built_step_chunk, "auto", quant=True),
-                     op_budget_override=clip_budget(True)),
+                     op_budget_override={"sort": 0}),
         ContractCase("step_chunk/scatter@served", "step_chunk",
                      at(_built_step_chunk, "scatter")),
         ContractCase("stsp_spmv_batch/dense-mirror@served",

@@ -22,14 +22,16 @@ The port's functions run eagerly and update their state in place
   kernel wrapper one entry (``hlo.kernel_region``), not from HLO text.
 
 Every contract is declared with the reference's clauses, clause for
-clause; ``tests/test_torch_contracts.py`` holds the two registries equal.
-Where the port's code could not meet a clause as it stood, the code was
-changed (``ops.bank_rows`` writes with one ``index_copy_`` instead of an
-indexed assignment, which is a scatter; the dense-mirror product is a
-kernel that keeps the mirror at its packed dtype instead of a float64
-GEMM).  One clause of a case differs, and :func:`served_clip_budget`
-states it: the dense-mirror chunk's ``sort`` at the capacity the port
-serves.
+clause, but one that is stricter; ``tests/test_torch_contracts.py`` holds
+the two registries equal but for it.  Where the port's code could not
+meet a clause as it stood, the code was changed (``ops.bank_rows`` writes
+with one ``index_copy_`` instead of an indexed assignment, which is a
+scatter; the dense-mirror product is a kernel that keeps the mirror at
+its packed dtype instead of a float64 GEMM).  The stricter clause is
+``delta_spmv_dense_topk``'s ``sort: 0`` (the reference's is 1): the
+reference's top_k runs under a ``lax.cond`` when a row overflowed, the
+port's count and clip are one kernel that sorts nothing, so the dense
+chunk meets the reference's ``sort: 0`` at any capacity.
 
 A sharded pool's chunk (``cases``' ``step_chunk/sharded-4dev``) is one
 call per shard; :func:`check_shards` adds the counterpart of the
@@ -113,25 +115,6 @@ def hotpath_contract(
         return fn
 
     return deco
-
-
-def served_clip_budget(n_clipping_layers: int, n_frames: int
-                       ) -> Dict[str, int]:
-    """The one clause where the port differs from the reference, as a
-    case's budget override: ``sort`` on a dense-mirror chunk at a capacity
-    below the layer's Q (the served ``EngineConfig().capacity_frac``).
-
-    The reference clips a dense-mirror layer to its capacity under a
-    ``lax.cond`` on "any row overflowed", so its steady state runs no
-    top_k; its chunk cases build at ``capacity_frac=1.0``, where nothing
-    can be clipped, and hold the chunk to ``sort: 0``.  The port cannot
-    branch on a device value without a host sync, which
-    ``no_host_transfers`` forbids, so its clip (``ops._clip_to_capacity``)
-    runs one ``topk`` on every layer-frame, the identity on rows that did
-    not overflow.  At the served capacity its chunk is held to exactly
-    that: one sort per clipping layer per frame, where the reference's
-    dense-mirror chunk cases hold ``sort: 0``."""
-    return {"sort": n_clipping_layers * n_frames}
 
 
 def get_contract(name: str) -> HotpathContract:

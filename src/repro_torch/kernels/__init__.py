@@ -6,6 +6,8 @@ stsp_spmv       — MAC arrays: spatio-temporal sparse MxV over CBCSC (Fig. 2/9)
 lstm_pointwise  — HPE: fused gate nonlinearities + cell update (Fig. 8)
 dense_mirror    — the dense-mirror route's product, batch-invariant (the
                   port's own kernel, in place of an XLA dot)
+capacity_clip   — the dense route's fired count and capacity clip (the
+                  port's own kernel, in place of XLA's top_k under a cond)
 
 The CUDA sources are in ``csrc/`` and are built at first use
 (``_build.py``).  Each kernel module keeps its plain PyTorch version from

@@ -53,6 +53,9 @@ SIGNATURES = {
                                  _P],
     "spartus_dense_mirror_i8": [_I, _P, _P, _P, _P, _I, _I, _I, _P, _P,
                                 _P],
+    # device, delta, ds (or null), n_dropped, B, Q, capacity, clip
+    # counters (or null), stream
+    "spartus_capacity_clip_topk": [_I, _P, _P, _P, _I, _I, _I, _P, _P],
 }
 
 _lock = threading.Lock()

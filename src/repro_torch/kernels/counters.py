@@ -17,9 +17,17 @@ dense-mirror kernel or the scatter SpMV):
 
 and one byte a column, ``marks``: the product marks the columns some row
 fired, and the layer's HPE launch, which follows it, adds their number
-to ``union`` and clears them.  No counter costs a launch, reads a value
-the arithmetic writes or writes one it reads, and none syncs; a CUDA
-graph of a chunk replays them with its launches.
+to ``union`` and clears them.  On the dense route, two more int64
+counters a layer, ``CLIP_FIELDS``, follow the capacity clip's launch
+(``kernels/capacity_clip.py``):
+
+    rows      rows of delta the clip saw (B a call)
+    clipped   rows it clipped: more than the capacity fired
+
+All six sit in one ``table [L, 6]``: ``counts`` is its first four
+columns, ``clip`` its last two.  No counter costs a launch, reads a
+value the arithmetic writes or writes one it reads, and none syncs; a
+CUDA graph of a chunk replays them with its launches.
 
 Counting is switched on per thread: a pool with a ``PoolObservability``
 runs its dispatch inside `counting()`, and only there does its engine's
@@ -43,6 +51,8 @@ import torch
 
 FIELDS = ("calls", "fired", "union", "staged")
 KERNELS = ("dense_mirror", "stsp_spmv")   # the products counted
+CLIP = "capacity_clip"
+CLIP_FIELDS = ("rows", "clipped")
 MIRROR_MAX_ROWS = 32     # csrc: kMirrorMaxRows
 
 
@@ -51,24 +61,29 @@ class LayerCounters(NamedTuple):
 
     counts: torch.Tensor   # [4] int64, FIELDS
     union: torch.Tensor    # [1] int64, counts[2:3]
+    clip: torch.Tensor     # [2] int64, CLIP_FIELDS
     marks: torch.Tensor    # [Q] uint8, one per column of the deltas
 
 
 class KernelCounters:
-    """A pool engine's counters: ``counts [L, 4]`` int64 and ``marks
-    [L, max Q]`` uint8 on its device; ``kernels[l]`` names layer l's
-    product, ``"dense_mirror"`` or ``"stsp_spmv"``."""
+    """A pool engine's counters: ``table [L, 6]`` int64 (``counts [L,
+    4]``, FIELDS, then ``clip [L, 2]``, CLIP_FIELDS) and ``marks [L, max
+    Q]`` uint8 on its device; ``kernels[l]`` names layer l's product,
+    ``"dense_mirror"`` or ``"stsp_spmv"``."""
 
     def __init__(self, n_cols: Sequence[int], kernels: Sequence[str],
                  device: torch.device):
         self.kernels = tuple(kernels)
-        self.counts = torch.zeros((len(n_cols), len(FIELDS)),
-                                  dtype=torch.int64, device=device)
+        width = len(FIELDS) + len(CLIP_FIELDS)
+        self.table = torch.zeros((len(n_cols), width), dtype=torch.int64,
+                                 device=device)
+        self.counts = self.table[:, :len(FIELDS)]
+        self.clip = self.table[:, len(FIELDS):]
         self.marks = torch.zeros((len(n_cols), max(n_cols)),
                                  dtype=torch.uint8, device=device)
         self.layers = tuple(
             LayerCounters(self.counts[i], self.counts[i, 2:3],
-                          self.marks[i, :q])
+                          self.clip[i], self.marks[i, :q])
             for i, q in enumerate(n_cols))
 
 
@@ -143,6 +158,15 @@ def count_list_plain(layer: LayerCounters, idx: torch.Tensor,
     layer.marks[idx[live].long()] = 1
     n = live.sum()
     _add(layer, n, n)
+
+
+def count_clip_plain(layer: LayerCounters,
+                     n_dropped: torch.Tensor) -> None:
+    """The capacity clip's counts of one call, in plain PyTorch, from its
+    ``n_dropped [B]``: a row was clipped where some of it dropped."""
+    layer.clip.add_(torch.stack([
+        torch.tensor(n_dropped.shape[0], dtype=torch.int64),
+        (n_dropped > 0).sum()]))
 
 
 def count_marks_plain(layer: LayerCounters) -> None:

@@ -1,6 +1,7 @@
 // Hand-written Hopper (sm_90a) kernels of the Spartus datapath: the CUDA
-// ports of the four Pallas TPU kernels of src/repro/kernels/, and the
-// batch-invariant dense-mirror product that stands in for an XLA dot.
+// ports of the four Pallas TPU kernels of src/repro/kernels/, the
+// batch-invariant dense-mirror product that stands in for an XLA dot, and
+// the dense route's count and capacity clip in one launch.
 //
 // Plain C interface, bound from Python with ctypes
 // (src/repro_torch/kernels/_build.py).  Every entry point takes the CUDA
@@ -1296,6 +1297,206 @@ int launch_dense_mirror(int device, const float* ds, const W* wt,
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
+// ---------------------------------------------------------------------------
+// capacity_clip_topk: the dense route's fired count and capacity clip
+//
+// Replaces: no Pallas kernel.  It is the count and the clip of
+//           src/repro/kernels/ops.py:delta_spmv_dense_topk_batch (n_fired,
+//           n_dropped, and clip() under its lax.cond), which the port ran
+//           as a chain of 22 PyTorch calls (a multi-block top-k, an int64
+//           scan, ...) on every layer-frame: the reference branches on
+//           "any row overflowed", and a branch on a device value needs a
+//           host sync.
+// Computes: for every row b of delta [B, Q], count = #{q : delta != 0}
+//           (a float compare, so -0.0 does not fire) and n_dropped[b] =
+//           max(count - capacity, 0); and, unless ds is null (k >= Q,
+//           where the caller takes delta itself), ds[b] = the chain's
+//           where(keep, delta, +0.0), keep = fired & (|delta| > t |
+//           (|delta| == t & tie rank <= k - #above)) with t the k-th
+//           largest |delta| of the fired entries (topk's order, a NaN
+//           above +inf) and ties ranked in index order: the k largest
+//           |delta|, boundary ties toward the lower index (the kept set
+//           of ops.select_active_columns).  A row with at most k fired
+//           entries keeps every finite fired entry (the chain's threshold
+//           is then -1 or its least magnitude).  delta is only read.
+// Bound:    bytes: the row read once and ds written once, 2 x B x Q x 4
+//           bytes (16.8 MB at B = 1024, Q = 2048: ~5 us at 3.35 TB/s).
+// Design:   one block per row, the row in registers (8 a thread, strided
+//           by the block so loads coalesce, the fewest warps that hold
+//           the row, at most 1024 threads; a row past 8 x 1024 is taken a
+//           tile at a time and read again for each pass).  A block sum
+//           counts the fired entries; a row with at most k of them, the
+//           case in served traffic, is written through and the block
+//           stops: the reference's lax.cond, taken per row on the device.
+//           Otherwise radix select finds t: four passes of 8 bits over
+//           the fired magnitudes' bit patterns (a positive float orders
+//           as its bits), each a shared-memory histogram of the entries
+//           that match the digits so far, one warp picking the digit from
+//           the top by a suffix scan.  A block sum counts the entries
+//           above t, and the ties are ranked by a ballot a warp and a
+//           scan over the warps, one element of each thread at a time in
+//           index order.  With counts given (a layer's clip counters,
+//           [rows, clipped]), block 0 adds the launch's rows and each
+//           clipped row adds one: the launch counters' way, no launch
+//           and no sync of their own.
+// ---------------------------------------------------------------------------
+constexpr int kClipMaxThreads = 1024;
+constexpr int kClipE = 8;       // a row's elements a thread
+constexpr int kClipBins = 256;  // a digit of 8 bits a pass
+
+// one block a row
+__global__ void __launch_bounds__(kClipMaxThreads)
+    capacity_clip_topk_kernel(const float* __restrict__ delta,
+                              float* __restrict__ ds,
+                              int* __restrict__ n_dropped, int Q,
+                              int capacity,
+                              unsigned long long* __restrict__ counts) {
+  const int k = capacity < Q ? capacity : Q;
+  __shared__ unsigned hist[kClipBins];
+  __shared__ int warp_ties[32];
+  __shared__ int row_count;
+  __shared__ unsigned pick_digit;
+  __shared__ int pick_left;
+  const int T = blockDim.x;
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  constexpr int E = kClipE;
+  const int tile = E * T;
+  const int n_tiles = (Q + tile - 1) / tile;
+  const size_t row = static_cast<size_t>(blockIdx.x) * Q;
+  float v[E];
+  auto load = [&](int t) {
+#pragma unroll
+    for (int e = 0; e < E; ++e) {
+      const int i = t * tile + e * T + threadIdx.x;
+      v[e] = i < Q ? delta[row + i] : 0.0f;
+    }
+  };
+  auto index = [&](int t, int e) { return t * tile + e * T + threadIdx.x; };
+
+  load(0);
+  int count = 0;
+  for (int t = 0; t < n_tiles; ++t) {
+    if (t > 0) load(t);
+#pragma unroll
+    for (int e = 0; e < E; ++e) count += v[e] != 0.0f ? 1 : 0;
+  }
+  count = block_sum(count);
+  if (threadIdx.x == 0) {
+    row_count = count;
+    n_dropped[blockIdx.x] = count > capacity ? count - capacity : 0;
+    if (counts != nullptr) {
+      if (blockIdx.x == 0) {
+        atomicAdd(&counts[0], static_cast<unsigned long long>(gridDim.x));
+      }
+      if (count > k) atomicAdd(&counts[1], 1ull);
+    }
+  }
+  __syncthreads();
+  if (ds == nullptr) return;
+  float* const out = ds + row;
+  if (row_count <= k) {
+    for (int t = 0; t < n_tiles; ++t) {
+      if (n_tiles > 1) load(t);
+#pragma unroll
+      for (int e = 0; e < E; ++e) {
+        const int i = index(t, e);
+        if (i < Q) out[i] = fabsf(v[e]) > 0.0f ? v[e] : 0.0f;
+      }
+    }
+    return;
+  }
+
+  // t: radix select of the k-th largest fired magnitude, from the top
+  unsigned prefix = 0, mask = 0;
+  int left = k;  // of the entries matching prefix, those still to pass
+  for (int shift = 24; shift >= 0; shift -= 8) {
+    for (int j = threadIdx.x; j < kClipBins; j += T) hist[j] = 0;
+    __syncthreads();
+    for (int t = 0; t < n_tiles; ++t) {
+      if (n_tiles > 1) load(t);
+#pragma unroll
+      for (int e = 0; e < E; ++e) {
+        const unsigned key = __float_as_uint(v[e]) & 0x7fffffffu;
+        if (v[e] != 0.0f && (key & mask) == prefix) {
+          atomicAdd(&hist[(key >> shift) & 0xffu], 1u);
+        }
+      }
+    }
+    __syncthreads();
+    if (warp == 0) {
+      // lane l holds bins [8l, 8l + 8); `at` counts the entries in its
+      // bins and every bin above them
+      unsigned c[8];
+      unsigned at = 0;
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        c[j] = hist[8 * lane + j];
+        at += c[j];
+      }
+      for (int off = 1; off < 32; off <<= 1) {
+        const unsigned up = __shfl_down_sync(0xffffffffu, at, off);
+        if (lane + off < 32) at += up;
+      }
+      unsigned higher = __shfl_down_sync(0xffffffffu, at, 1);
+      if (lane == 31) higher = 0;
+      const unsigned reach =
+          __ballot_sync(0xffffffffu, at >= static_cast<unsigned>(left));
+      if (lane == 31 - __clz(reach)) {
+#pragma unroll
+        for (int j = 7; j >= 0; --j) {
+          if (higher + c[j] >= static_cast<unsigned>(left)) {
+            pick_digit = 8 * lane + j;
+            pick_left = left - static_cast<int>(higher);
+            break;
+          }
+          higher += c[j];
+        }
+      }
+    }
+    __syncthreads();
+    prefix |= pick_digit << shift;
+    mask |= 0xffu << shift;
+    left = pick_left;
+  }
+  const float thr = __uint_as_float(prefix);
+
+  // the chain's keep rule on t: the entries above it, then the ties in
+  // index order while k - #above allows
+  int above = 0;
+  for (int t = 0; t < n_tiles; ++t) {
+    if (n_tiles > 1) load(t);
+#pragma unroll
+    for (int e = 0; e < E; ++e) above += fabsf(v[e]) > thr ? 1 : 0;
+  }
+  above = block_sum(above);
+  if (threadIdx.x == 0) row_count = above;
+  __syncthreads();
+  const int allow = k - row_count;
+  const int n_warps = T >> 5;
+  int before = 0;  // ties at lower indices
+  for (int t = 0; t < n_tiles; ++t) {
+    if (n_tiles > 1) load(t);
+#pragma unroll
+    for (int e = 0; e < E; ++e) {
+      const int i = index(t, e);
+      const float a = fabsf(v[e]);
+      const bool tie = i < Q && a == thr;
+      const unsigned ties = __ballot_sync(0xffffffffu, tie);
+      if (lane == 0) warp_ties[warp] = __popc(ties);
+      __syncthreads();
+      int rank = before + __popc(ties & ((1u << lane) - 1u));
+      for (int w = 0; w < n_warps; ++w) {
+        const int n = warp_ties[w];
+        if (w < warp) rank += n;
+        before += n;
+      }
+      if (i < Q) out[i] = a > thr || (tie && rank < allow) ? v[e] : 0.0f;
+      __syncthreads();
+    }
+  }
+}
+
 }  // namespace
 
 extern "C" {
@@ -1417,6 +1618,30 @@ int spartus_dense_mirror_i8(int device, const float* ds, const int8_t* wt,
                             void* stream) {
   return launch_dense_mirror<int8_t>(device, ds, wt, scale, y, B, Q, N,
                                      counts, marks, stream);
+}
+
+// delta [B, Q] read; n_dropped [B] written; ds [B, Q] written, or null
+// where the caller takes delta itself (capacity >= Q: only the counts);
+// capacity >= 1 where ds is given; counts: a layer's clip counters [rows,
+// clipped] (the launch counters above), or null.
+int spartus_capacity_clip_topk(int device, const float* delta, float* ds,
+                               int* n_dropped, int B, int Q, int capacity,
+                               long long* counts, void* stream) {
+  const DeviceScope scope(device);
+  cudaError_t err = scope.err;
+  if (err != cudaSuccess) return static_cast<int>(err);
+  if (B < 0 || Q < 0 || capacity < 0 || (ds != nullptr && capacity < 1)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  if (B == 0) return 0;
+  auto* const c = reinterpret_cast<unsigned long long*>(counts);
+  const auto st = static_cast<cudaStream_t>(stream);
+  const int threads =
+      std::min(kClipMaxThreads,
+               std::max(32, ((Q + kClipE - 1) / kClipE + 31) / 32 * 32));
+  capacity_clip_topk_kernel<<<B, threads, 0, st>>>(delta, ds, n_dropped, Q,
+                                                   capacity, c);
+  return static_cast<int>(cudaGetLastError());
 }
 
 }  // extern "C"

@@ -1,16 +1,17 @@
 """Public wrappers the engines call — port of ``repro/kernels/ops.py``.
 
-The delta encoder, the pointwise HPE math, the CBCSC SpMV and the
-dense-mirror product go through the kernel modules (a CUDA kernel for a
-CUDA tensor, the plain PyTorch version for a CPU tensor).  The rest is
-plain PyTorch in both places, as it was XLA (not Pallas) in the
-reference:
+The delta encoder, the pointwise HPE math, the CBCSC SpMV, the
+dense-mirror product and the dense route's capacity clip go through the
+kernel modules (a CUDA kernel for a CUDA tensor, the plain PyTorch
+version for a CPU tensor).  The rest is plain PyTorch in both places, as
+it was XLA (not Pallas) in the reference:
 
 * ``select_active_columns[_batch]`` — the fixed-capacity NZI list builder;
-* ``delta_spmv_dense_topk_batch`` — capacity clip + the dense-mirror
-  product (``kernels/dense_mirror.py``, batch-invariant: see
-  ``_mirror_matmul``);
 * the frame gather and the logits bank/gather of the chunked pool.
+
+``delta_spmv_dense_topk_batch`` is two launches: the capacity clip
+(``kernels/capacity_clip.py``) and the dense-mirror product
+(``kernels/dense_mirror.py``, batch-invariant: see ``_mirror_matmul``).
 
 The functions the reference declares hot-path contracts on carry the
 same declarations (``repro_torch.analysis.contracts``).
@@ -26,6 +27,7 @@ from typing import Optional, Tuple
 import torch
 
 from repro_torch.analysis.contracts import hotpath_contract
+from repro_torch.kernels import capacity_clip as _cc
 from repro_torch.kernels import delta_encode as _de
 from repro_torch.kernels import dense_mirror as _dm
 from repro_torch.kernels import lstm_pointwise as _lp
@@ -166,24 +168,8 @@ def _mirror_matmul(ds: torch.Tensor, w: torch.Tensor,
     return _dm.dense_mirror(ds, w, scale)
 
 
-def _clip_to_capacity(delta: torch.Tensor, k: int) -> torch.Tensor:
-    """Zero all but the k largest |delta| per row, boundary ties kept
-    toward the lower index (the kept set of ``select_active_columns``).
-    The identity on rows with at most k fired entries."""
-    fired = delta != 0
-    mag = delta.abs()
-    masked = torch.where(fired, mag, torch.full_like(mag, -1.0))
-    thresh = torch.topk(masked, k, dim=-1).values[..., -1:]   # k-th largest
-    above = fired & (mag > thresh)
-    ties = fired & (mag == thresh)
-    n_above = above.sum(-1, keepdim=True, dtype=torch.int32)
-    tie_rank = torch.cumsum(ties.to(torch.int32), dim=-1)
-    keep = above | (ties & (tie_rank <= k - n_above))
-    return torch.where(keep, delta, torch.zeros_like(delta))
-
-
 @hotpath_contract("delta_spmv_dense_topk", forbid_ops=("transpose",),
-                  op_budget={"dot": 1, "sort": 1})
+                  op_budget={"dot": 1, "sort": 0})
 def delta_spmv_dense_topk_batch(wt: torch.Tensor, delta: torch.Tensor,
                                 capacity: int,
                                 scale: Optional[torch.Tensor] = None
@@ -192,14 +178,11 @@ def delta_spmv_dense_topk_batch(wt: torch.Tensor, delta: torch.Tensor,
     mirror, fp32 or int8), delta [B, Q] -> (y [B, H], n_dropped [B]).
 
     The reference clips under a ``lax.cond`` on "any row overflowed";
-    branching here would need a host sync, so the clip runs every time —
-    it is the identity on rows that did not overflow, so the result is
-    bit-identical."""
-    q = delta.shape[-1]
-    k = min(capacity, q)
-    n_fired = (delta != 0).sum(-1, dtype=torch.int32)
-    n_dropped = torch.clamp(n_fired - capacity, min=0)
-    ds = delta if k >= q else _clip_to_capacity(delta, k)
+    branching here would need a host sync, so the count and the clip are
+    one kernel (``kernels/capacity_clip.py``) that takes that branch per
+    row on the device: bit-identical, and no sort.  Its ``sort: 0`` is
+    the one clause stricter than the reference's ``sort: 1``."""
+    ds, n_dropped = _cc.capacity_clip(delta, capacity)
     return _mirror_matmul(ds, wt, scale), n_dropped
 
 

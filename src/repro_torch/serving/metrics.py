@@ -33,8 +33,10 @@ need measured from inside the program:
 * the pool engines' **launch counters** (``kernels/counters.py``), which
   ride the telemetry totals' lagged copy into
   ``spartus_kernel_{calls,fired,union,staged}_total{kernel=,layer=}``
-  and each sample's ``<kernel>_<field>_inc`` (summed over layers and
-  shards, one window late like ``temporal_sparsity_inc``);
+  (and the dense route's clip: ``spartus_kernel_{rows,clipped}_total
+  {kernel="capacity_clip",layer=}``) and each sample's
+  ``<kernel>_<field>_inc`` (summed over layers and shards, one window
+  late like ``temporal_sparsity_inc``);
 * the tick's **phases** as leaf spans, none covering another on its
   thread (but a client's ``stream_open``, which runs while the loop
   yields in ``pacing_idle``), so a gap in the device's work falls under
@@ -94,8 +96,8 @@ from typing import Any, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 
+from repro_torch.kernels.counters import CLIP, CLIP_FIELDS, KERNELS
 from repro_torch.kernels.counters import FIELDS as KERNEL_FIELDS
-from repro_torch.kernels.counters import KERNELS
 
 __all__ = [
     "Counter", "Gauge", "Histogram", "MetricsRegistry",
@@ -678,7 +680,7 @@ class PoolObservability:
             "async tick: submit to worker start plus worker end to loop "
             "resume", buckets=HANDOFF_BUCKETS)
         self._fault_counters: Dict[str, Counter] = {}
-        # the launch counters: last fetched [L, 4] totals and the
+        # the launch counters: last fetched [L, 6] totals and the
         # per-layer registry counters, made on first sight
         self._last_kernel_counts: Optional[np.ndarray] = None
         self._kernel_counters: Dict[Tuple[int, str], List[Counter]] = {}
@@ -766,10 +768,11 @@ class PoolObservability:
         ``new_totals`` for the next boundary.  Returns the window's
         (temporal_sparsity, overflow_rate, steps) and its launch-counter
         increments (`_diff_kernels`): a source whose ``kernel_counts()``
-        gives the engines' ``[L, 4]`` totals, staged in the same copy,
+        gives the engines' ``[L, 6]`` totals, staged in the same copy,
         brings them along."""
         inc = (0.0, 0.0, 0.0)
         kinc = {f"{k}_{f}_inc": 0 for k in KERNELS for f in KERNEL_FIELDS}
+        kinc.update({f"{CLIP}_{f}_inc": 0 for f in CLIP_FIELDS})
         pend = self._pending_totals
         if pend is not None:
             now = _host_values(pend)
@@ -787,9 +790,10 @@ class PoolObservability:
 
     def _diff_kernels(self, now: Optional[np.ndarray],
                       kernels: Sequence[str], inc: Dict[str, int]) -> None:
-        """Fold fetched launch-counter totals ``now [L, 4]`` (layer l's
-        product is ``kernels[l]``): the per-layer registry counters grow
-        by the increments, and ``inc`` gets them summed over layers."""
+        """Fold fetched launch-counter totals ``now [L, 6]`` (layer l's
+        product is ``kernels[l]``, its last two columns the capacity
+        clip's): the per-layer registry counters grow by the increments,
+        and ``inc`` gets them summed over layers."""
         if now is None:
             return
         now = np.asarray(now, np.int64)
@@ -800,21 +804,25 @@ class PoolObservability:
         d = now if restart else now - last
         self._last_kernel_counts = now
         for layer, kernel in enumerate(kernels):
-            key = (layer, kernel)
-            counters = self._kernel_counters.get(key)
-            if counters is None:
-                counters = self._kernel_counters[key] = [
-                    self.registry.counter(
-                        f"spartus_kernel_{field}_total",
-                        f"launch counters of the pool's sparse products: "
-                        f"{field}",
-                        labels={"kernel": kernel, "layer": str(layer)})
-                    for field in KERNEL_FIELDS]
-            for i, (field, c) in enumerate(zip(KERNEL_FIELDS, counters)):
-                n = int(d[layer, i])
-                if n > 0:
-                    c.inc(n)
-                    inc[f"{kernel}_{field}_inc"] += n
+            # columns: the product's FIELDS, then the clip's CLIP_FIELDS
+            for name, fields, col, what in (
+                    (kernel, KERNEL_FIELDS, 0, "the pool's sparse products"),
+                    (CLIP, CLIP_FIELDS, len(KERNEL_FIELDS),
+                     "the dense route's capacity clip")):
+                key = (layer, name)
+                counters = self._kernel_counters.get(key)
+                if counters is None:
+                    counters = self._kernel_counters[key] = [
+                        self.registry.counter(
+                            f"spartus_kernel_{field}_total",
+                            f"launch counters of {what}: {field}",
+                            labels={"kernel": name, "layer": str(layer)})
+                        for field in fields]
+                for i, (field, c) in enumerate(zip(fields, counters)):
+                    n = int(d[layer, col + i])
+                    if n > 0:
+                        c.inc(n)
+                        inc[f"{name}_{field}_inc"] += n
 
     def fold_chunk(
         self, *,

@@ -226,7 +226,7 @@ class _SummedCopies:
     """What the observability fold reads of one `HostCopy`: ``wait()``,
     the host sum of its first ``n_totals`` tensors (the shards'
     telemetry totals), and ``kernel_counts()``, the sum of the rest (the
-    engines' ``[L, 4]`` launch counters, layer l's product
+    engines' ``[L, 6]`` launch counters, layer l's product
     ``kernels[l]``; None when nothing counts)."""
 
     def __init__(self, copy: HostCopy, n_totals: int,
@@ -1138,7 +1138,7 @@ class SessionPool:
         totals = self.telemetry_totals()
         counters = self._kernel_counters()
         totals = _SummedCopies(
-            HostCopy(*totals, *(c.counts for c in counters)), len(totals),
+            HostCopy(*totals, *(c.table for c in counters)), len(totals),
             counters[0].kernels if counters else ())
         self.obs.fold_chunk(
             occupancy=self.n_active,

@@ -3,7 +3,8 @@
 Every case of ``cases.build_cases()`` (the reference's 14 unsharded
 cases, by the same names, at the reference's test scale) passes, and so
 does every ``cases.served_cases()`` case at the served capacity; the
-port registers the same contracts as the reference, by name and clause;
+port registers the same contracts as the reference, by name and clause,
+but for one stricter clause (the dense route's ``sort: 0``);
 each clause catches the fault it names on a small function built to
 commit it; and restoring the float64 dense mirror fails ``max_dtype``.
 
@@ -175,28 +176,40 @@ def _served(name):
 
 @pytest.mark.parametrize("name", SERVED_NAMES)
 def test_served_case_passes(name):
-    """The served capacity (0.5 of Q) clips on every layer-frame: each
-    dense-mirror chunk holds exactly its stated sort budget, each op one
-    sort, and every other clause as declared."""
+    """The served capacity (0.5 of Q) clips on every layer-frame: the
+    dense route's count and clip are one kernel that sorts nothing, so
+    each dense-mirror chunk holds the reference's ``sort: 0``, one clip
+    and one product a layer-frame, and every other clause as declared."""
     case = _served(name)
     report = contracts.check_case(case)
     assert report.ok, [str(v) for v in report.violations]
     assert report.alias_entries == report.donated_leaves
-    sorts = report.op_histogram.get("sort", 0)
+    hist = report.op_histogram
     if name.startswith("stsp_spmv_batch/"):
-        assert sorts == 1
+        assert "sort" not in hist
+        assert hist["kernel:capacity_clip"] == hist["kernel:dense_mirror"] \
+            == 1
     elif name != "step_chunk/scatter@served":
-        assert case.op_budget_override == contracts.served_clip_budget(2, 4)
-        assert sorts == 8 and report.op_histogram["kernel:dense_mirror"] == 8
+        assert case.op_budget_override == {"sort": 0}
+        assert "sort" not in hist
+        assert hist["kernel:capacity_clip"] == 8     # 4 frames x 2 layers
+        assert hist["kernel:dense_mirror"] == 8
 
 
-def test_served_dense_chunk_fails_the_references_sort_budget():
-    """The port's one differing clause is a real difference: at the
-    served capacity the reference's ``sort: 0`` would fail."""
-    case = dataclasses.replace(_served("step_chunk/dense-mirror@served"),
-                               op_budget_override={"sort": 0})
+def test_served_dense_chunk_fails_the_references_sort_budget(monkeypatch):
+    """The reference's ``sort: 0`` is a real bound on the served dense
+    chunk: the chunk meets it, and the same chunk with the clip's top-k
+    chain back outside a kernel (the port's dense route before its clip
+    kernel) fails it on ``op_budget`` alone."""
+    from repro_torch.kernels import capacity_clip
+
+    case = _served("step_chunk/dense-mirror@served")
+    assert case.op_budget_override == {"sort": 0}
+    assert contracts.check_case(case).ok
+    monkeypatch.setattr(capacity_clip, "capacity_clip", capacity_clip.plain)
     report = contracts.check_case(case)
     assert [v.clause for v in report.violations] == ["op_budget"]
+    assert report.op_histogram["sort"] == 8
 
 
 def test_registry_equals_the_references():
@@ -214,6 +227,10 @@ def test_registry_equals_the_references():
 
     want = table(jcontracts.registered_contracts())
     got = table(contracts.registered_contracts())
+    # the one stricter clause: the port's count and clip sort nothing
+    assert want["delta_spmv_dense_topk"]["op_budget"]["sort"] == 1
+    assert got["delta_spmv_dense_topk"]["op_budget"]["sort"] == 0
+    got["delta_spmv_dense_topk"]["op_budget"]["sort"] = 1
     assert got == want
     assert len(got) == 8
 

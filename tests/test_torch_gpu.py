@@ -363,6 +363,94 @@ def test_dense_mirror_kernel_edges(cuda):
         assert torch.equal(got.cpu(), dm.plain(ds, wt8, scale))
 
 
+def _clip_delta(b, q, share, seed):
+    """delta [b, q] with ``share`` of it fired: half of the fired values
+    from a few magnitudes (ties at any threshold), half normal; -0.0 in
+    the unfired places of odd rows, and row 1 all zero where b > 2."""
+    g = _gen(seed)
+    tied = torch.tensor([0.25, 0.5, 1.0])[
+        torch.randint(0, 3, (b, q), generator=g)]
+    tied = tied * (torch.randint(0, 2, (b, q), generator=g) * 2 - 1)
+    vals = torch.where(torch.rand((b, q), generator=g) < 0.5, tied,
+                       torch.randn((b, q), generator=g))
+    delta = torch.where(torch.rand((b, q), generator=g) < share, vals, 0.0)
+    delta[1::2][delta[1::2] == 0] = -0.0
+    if b > 2:
+        delta[1] = 0.0
+    return delta
+
+
+@pytest.mark.parametrize("share", [0.05, 0.12, 0.6, 1.0])
+@pytest.mark.parametrize("q", [1147, 2048, 37])
+@pytest.mark.parametrize("b", [1, 16, 1024])
+def test_capacity_clip_kernel_equals_plain(cuda, b, q, share):
+    """The clip kernel's ds and n_dropped equal the plain version's bit
+    for bit at the served capacity (half of Q), at a twentieth of Q
+    (rows overflow, ties straddle the threshold) and past Q (ds is delta
+    itself): 5% and 12% of the deltas fired (the served traffic's), 60%
+    and 100%."""
+    from repro_torch.kernels import capacity_clip as cc
+
+    delta = _clip_delta(b, q, share, seed=b * q + int(share * 100))
+    d_delta = delta.to(cuda)
+    for capacity in ((q + 1) // 2, max(1, q // 20), q + 3):
+        before = cc.KERNEL.launches
+        ds, nd = cc.capacity_clip(d_delta, capacity)
+        assert cc.KERNEL.launches == before + 1
+        want_ds, want_nd = cc.plain(delta, capacity)
+        assert torch.equal(nd.cpu(), want_nd)
+        assert torch.equal(_bits(ds), _bits(want_ds))
+        if capacity > q:
+            assert ds is d_delta
+        assert torch.equal(d_delta.cpu(), delta)       # delta only read
+
+
+def test_capacity_clip_kernel_edges(cuda):
+    """A row past one tile of the kernel's registers (Q = 40000, read a
+    tile at a time), capacity 1, an empty batch, and rows whose fired
+    entries all tie."""
+    from repro_torch.kernels import capacity_clip as cc
+
+    for b, q, share, capacity in ((3, 40000, 0.6, 20000), (3, 40000, 1.0, 7),
+                                  (5, 300, 0.3, 1), (0, 64, 0.5, 8)):
+        delta = _clip_delta(b, q, share, seed=q + capacity)
+        ds, nd = cc.capacity_clip(delta.to(cuda), capacity)
+        want_ds, want_nd = cc.plain(delta, capacity)
+        assert torch.equal(nd.cpu(), want_nd)
+        assert torch.equal(_bits(ds), _bits(want_ds))
+    tied = torch.full((4, 500), -0.5)
+    ds, nd = cc.capacity_clip(tied.to(cuda), 100)
+    assert torch.equal(_bits(ds), _bits(cc.plain(tied, 100)[0]))
+    assert (ds[:, :100] == -0.5).all() and (ds[:, 100:] == 0).all()
+    with pytest.raises(ValueError, match="capacity >= 1"):
+        cc.capacity_clip(tied.to(cuda), 0)
+
+
+def test_capacity_clip_counters_on_card_equal_the_cpu_count(cuda):
+    """With a layer's counters selected, the kernel adds the rows it saw
+    and the rows it clipped, as the plain version counts them on the
+    host, with no launch of its own; without them, it counts nothing."""
+    from repro_torch.kernels import capacity_clip as cc
+    from repro_torch.kernels import counters as kcount
+
+    delta = _clip_delta(1024, 1147, 0.12, seed=3)
+    delta[::7] = _clip_delta(147, 1147, 0.6, seed=4)   # some overflow
+    got, want = (kcount.KernelCounters([1147], ["dense_mirror"], dev)
+                 for dev in (cuda, torch.device("cpu")))
+    for counters, d in ((got, delta.to(cuda)), (want, delta)):
+        for capacity in (574, 60, 2000):
+            kcount.select(counters.layers[0])
+            try:
+                cc.capacity_clip(d, capacity)
+            finally:
+                kcount.select(None)
+        cc.capacity_clip(d, 574)                        # not counted
+    assert torch.equal(got.table.cpu(), want.table)
+    rows, clipped = want.clip[0].tolist()
+    assert rows == 3 * 1024 and 0 < clipped < 2 * 1024
+    assert want.counts.abs().sum() == 0
+
+
 def test_kernel_wrappers_reject_what_the_kernels_do_not_take(cuda):
     x = torch.zeros((2, 8), device=cuda)
     with pytest.raises(TypeError):

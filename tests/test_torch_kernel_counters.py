@@ -173,6 +173,47 @@ def test_counters_of_a_pool_past_one_mirror_pass(params, monkeypatch,
         assert (counts[:, 3] == counts[:, 1]).all()
 
 
+@pytest.mark.parametrize("capacity_frac", [0.5, 0.1])
+def test_clip_counters_count_the_rows_that_overflow(params, monkeypatch,
+                                                    capacity_frac):
+    """The dense route's capacity clip counts, per layer, the rows it saw
+    and the rows it clipped (more fired than the capacity), as a recount
+    from the same calls' deltas has them; at a tenth of Q rows overflow,
+    and the registry and the samples carry the counts."""
+    from repro_torch.kernels import capacity_clip as cc
+
+    calls = []
+    clip = cc.capacity_clip
+
+    def recounted(delta, capacity):
+        k = min(capacity, delta.shape[-1])
+        calls.append((delta.shape[0], int(((delta != 0).sum(-1) > k).sum())))
+        return clip(delta, capacity)
+
+    monkeypatch.setattr(cc, "capacity_clip", recounted)
+    engine = _engine(params, "dense", False, capacity_frac)
+    obs = PoolObservability()
+    serve_requests(engine, _requests([9, 6, 12, 7, 15]), 3, chunk_frames=4,
+                   observability=obs)
+    want = np.zeros((2, 2), np.int64)
+    for i, c in enumerate(calls):
+        want[i % 2] += c
+    np.testing.assert_array_equal(engine.counters.clip.numpy(), want)
+    assert (want[:, 0] > 0).all()
+    assert ((want[:, 1] > 0).all() if capacity_frac < 0.5
+            else (want[:, 1] < want[:, 0]).all())
+    rows = sum(s[f"{kcount.CLIP}_rows_inc"]
+               for s in obs.timeseries.snapshot())
+    assert 0 < rows <= want[:, 0].sum()
+    obs.flush_totals()
+    snap = obs.registry.snapshot()
+    for i, field in enumerate(kcount.CLIP_FIELDS):
+        for layer in range(2):
+            key = (f'spartus_kernel_{field}_total{{kernel="{kcount.CLIP}",'
+                   f'layer="{layer}"}}')
+            assert snap[key]["value"] == want[layer, i]
+
+
 def _watch_selection(monkeypatch):
     """Record the layer selected on the calling thread at every product
     call (what the kernel wrapper would pass its entry point)."""

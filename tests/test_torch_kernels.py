@@ -295,6 +295,72 @@ def test_dense_topk_batch_vs_reference(capacity, int8):
         assert int(td.max()) > 0       # the clip really engaged
 
 
+def _clip_case(name):
+    """(delta [B, 64], capacity) of one clip case: rows at, under and over
+    the capacity, ties across the keep boundary, zero and -0.0 rows, and
+    capacities at and past Q."""
+    q, k = 64, 16
+    rng = np.random.default_rng(len(name))
+    delta = np.zeros((4, q), np.float32)
+
+    def fire(row, n, vals):
+        cols = rng.permutation(q)[:n]
+        delta[row, cols] = vals[:n]
+
+    normal = (rng.standard_normal(2 * q) * 0.5).astype(np.float32)
+    if name in ("under", "at", "over"):
+        n = {"under": k - 1, "at": k, "over": k + 1}[name]
+        for row in range(4):
+            fire(row, n, rng.permutation(normal))
+    elif name == "ties":
+        # 10 magnitudes above the threshold, then 12 at it: 6 ties kept
+        for row in range(4):
+            vals = np.concatenate([1.0 + rng.random(10),
+                                   np.full(12, 0.5)]).astype(np.float32)
+            fire(row, 22, vals * rng.choice([-1.0, 1.0], 22))
+    elif name == "zeros":
+        # row 0 all zero; rows 1-3 hold -0.0 among k + 3 fired entries
+        for row in range(1, 4):
+            fire(row, k + 3, rng.permutation(normal))
+            delta[row, delta[row] == 0] = -0.0
+    else:                           # "k=Q", "k>Q": nothing to clip
+        for row in range(4):
+            fire(row, 40, rng.permutation(normal))
+        return delta, q if name == "k=Q" else q + 5
+    return delta, k
+
+
+@pytest.mark.parametrize("name", ["under", "at", "over", "ties", "zeros",
+                                  "k=Q", "k>Q"])
+def test_capacity_clip_plain_vs_reference(name):
+    """The clip's plain version (the kernel's CPU half) against the
+    reference's dense route through an identity mirror, whose product is
+    the clipped deltas themselves: the same kept set, ties toward the
+    lower index, and the same n_dropped."""
+    from repro_torch.kernels import capacity_clip as cc
+
+    delta, capacity = _clip_case(name)
+    q = delta.shape[1]
+    jy, jd = jops.delta_spmv_dense_topk_batch(
+        jnp.eye(q, dtype=jnp.float32), jnp.asarray(delta), capacity)
+    before = cc.KERNEL.launches
+    x = _t(delta)
+    ds, nd = cc.capacity_clip(x, capacity)
+    assert cc.KERNEL.launches == before
+    np.testing.assert_array_equal(np.asarray(jy), ds.numpy())
+    np.testing.assert_array_equal(np.asarray(jd), nd.numpy())
+    assert nd.dtype == torch.int32
+    fired = (delta != 0).sum(1)
+    kept = (ds.numpy() != 0).sum(1)
+    np.testing.assert_array_equal(kept, np.minimum(fired, capacity))
+    if name == "over":
+        assert (nd.numpy() == 1).all()
+    if name == "ties":
+        assert (np.abs(ds.numpy()) == 0.5).sum(1).tolist() == [6] * 4
+    if capacity >= q:                     # delta itself, nothing dropped
+        assert ds is x and (nd.numpy() == 0).all()
+
+
 def test_dense_mirror_gemm_is_batch_invariant():
     """A session's SpMV result does not depend on how many rows share the
     product (the reason the mirror product is a kernel of its own that

@@ -34,7 +34,12 @@ from repro_torch.serving import AsyncSpartusServer as TServer
 from repro_torch.serving import BatchedSpartusEngine as TBatched
 from repro_torch.serving import EngineConfig as TConfig
 from repro_torch.serving import PoolObservability as TObs
-from repro_torch.serving.metrics import KERNEL_FIELDS, KERNELS
+from repro_torch.serving.metrics import (
+    CLIP,
+    CLIP_FIELDS,
+    KERNEL_FIELDS,
+    KERNELS,
+)
 
 REPO = Path(__file__).resolve().parents[1]
 INPUT_DIM, HIDDEN, CLASSES = 20, 32, 11
@@ -214,8 +219,8 @@ def test_line_too_long_closes_only_that_connection(conversations):
 def test_admin_commands_match_reference(conversations):
     """The reference's replies, metrics and sample keys, and besides them
     only the port's own: the pool engine's launch counters (four per
-    layer), the tick's hand-off histogram, and the samples' clock, hand-off
-    and counter increments."""
+    layer, and the capacity clip's two), the tick's hand-off histogram,
+    and the samples' clock, hand-off and counter increments."""
     (_, jadmin, *_), (_, tadmin, *_) = conversations
     assert [sorted(m) for m in tadmin] == [sorted(m) for m in jadmin]
     health, stats, metrics, ts, bad, not_obj = tadmin
@@ -224,7 +229,7 @@ def test_admin_commands_match_reference(conversations):
     assert stats["stats"]["n_requests"] == 2
     counters = {m for m in metrics["metrics"]
                 if m.startswith("spartus_kernel_")}
-    assert len(counters) == len(KERNEL_FIELDS) * 2
+    assert len(counters) == (len(KERNEL_FIELDS) + len(CLIP_FIELDS)) * 2
     port_only = counters | {"spartus_tick_handoff_seconds"}
     assert sorted(set(metrics["metrics"]) - port_only) == \
         sorted(jadmin[2]["metrics"])
@@ -232,7 +237,8 @@ def test_admin_commands_match_reference(conversations):
     assert "# TYPE spartus_frames_total counter" in metrics["prometheus"]
     assert 0 < len(ts["timeseries"]) <= 3 and ts["n_appended"] > 0
     sample_only = {"t_mono", "handoff_s"} | {
-        f"{k}_{f}_inc" for k in KERNELS for f in KERNEL_FIELDS}
+        f"{k}_{f}_inc" for k in KERNELS for f in KERNEL_FIELDS} | {
+        f"{CLIP}_{f}_inc" for f in CLIP_FIELDS}
     assert sorted(set(ts["timeseries"][0]) - sample_only) == \
         sorted(jadmin[3]["timeseries"][0])
     assert sample_only <= set(ts["timeseries"][0])

@@ -1,7 +1,7 @@
 """A/B device time of the port's CUDA kernel sources on one NVIDIA GPU.
 
     python tools/kernel_ab.py [--kernel spmv|delta_encode|lstm_pointwise|
-                               dense_mirror] [--ptxas]
+                               dense_mirror|capacity_clip] [--ptxas]
                               SOURCE[:NVCC_FLAG...] [SOURCE[:FLAG...] ...]
 
 Each SOURCE is a version of ``src/repro_torch/kernels/csrc/
@@ -12,7 +12,10 @@ or an edited variant); ``:``-separated flags after it are passed to nvcc
 content), then one kernel of each
 is timed at the 2x1024 model's shapes in the order A, B, ..., B, A, as
 the mean device time of 50 launches from torch.profiler.  Prints one line
-per source and case with the two times in ms.
+per source and case with the two times in ms; where the bench also times
+the PyTorch the kernel replaced (``capacity_clip``), the line adds the
+host's time to issue a call (the mean of 20 calls issued without a wait)
+in us.
 
 * ``spmv``: ``spartus_stsp_spmv_{f32_i32,i8_i8}`` at layer shapes Q=2048
   and 1147, M=64, BLEN=4, K=Q/2, ~30% of the columns fired, B=16 and B=1.
@@ -29,6 +32,14 @@ per source and case with the two times in ms.
   flags must equal the float64 plain version on the card bit for bit,
   and every source must equal the first one bit for bit (the kernel's
   summation order is fixed, so two versions of it agree exactly).
+* ``capacity_clip``: ``spartus_capacity_clip_topk`` at B = 1, 16 and 1024
+  and Q = 1147 and 2048, on served traffic (12% of the deltas fired, the
+  capacity half of Q: no row clipped) and on overflow (60% fired, a
+  twentieth of Q, ties at the threshold).  Each call allocates its
+  outputs, as the wrapper does.  Every source must give ``ds`` and
+  ``n_dropped`` equal bit for bit to the torch chain the dense route ran
+  before the kernel (``capacity_clip.plain`` on the card), which is timed
+  beside them as ``torch chain``: all its device ops, and its host time.
 
 For ``delta_encode`` and ``lstm_pointwise``, a source with the fused
 entry point (``spartus_delta_encode_step`` /
@@ -130,6 +141,26 @@ def ptxas_lines(log: Path, kernel: str):
         elif current and ("spill" in line or "Used" in line):
             out[-1] += " | " + line.split(":", 1)[-1].strip()
     return out
+
+
+def host_us(torch, fn, iters: int = 20, repeats: int = 5) -> float:
+    """The host's time to issue one call of ``fn``: the median over
+    ``repeats`` of the mean of ``iters`` calls issued back to back, the
+    device waited for between the repeats only (few enough calls that
+    the launch queue does not fill)."""
+    import statistics
+    import time
+
+    fn()
+    torch.cuda.synchronize()
+    means = []
+    for _ in range(repeats):
+        t0 = time.perf_counter()
+        for _ in range(iters):
+            fn()
+        means.append((time.perf_counter() - t0) / iters * 1e6)
+        torch.cuda.synchronize()
+    return statistics.median(means)
 
 
 def device_ms(torch, fn, kernel: str, iters: int = 50,
@@ -360,7 +391,53 @@ def dense_mirror_setup(torch, label, ds, wt, scale, want):
     return setup
 
 
+def capacity_clip_cases(torch):
+    from repro_torch.kernels import capacity_clip as cc
+
+    gen = torch.Generator().manual_seed(0)
+    out = []
+    for q in (1147, 2048):
+        for b in (1, 16, 1024):
+            for label, share, capacity in (("served 12%", 0.12, (q + 1) // 2),
+                                           ("overflow 60%", 0.6, q // 20)):
+                tied = torch.tensor([-1.0, -0.5, 0.25, 0.5, 1.0])[
+                    torch.randint(0, 5, (b, q), generator=gen)]
+                vals = torch.where(torch.rand((b, q), generator=gen) < 0.5,
+                                   tied, torch.randn((b, q), generator=gen))
+                delta = torch.where(torch.rand((b, q), generator=gen) < share,
+                                    vals, 0.0).cuda()
+                chain = (lambda d=delta, c=capacity: cc.plain(d, c))
+                out.append((f"Q={q} B={b} {label}",
+                            capacity_clip_setup(torch, delta, capacity,
+                                                chain()), chain))
+    return out
+
+
+def capacity_clip_setup(torch, delta, capacity, want):
+    def setup(lib):
+        b, q = delta.shape
+        stream = torch.cuda.current_stream().cuda_stream
+        last = []
+
+        def call():
+            ds = torch.empty_like(delta)
+            nd = torch.empty((b,), dtype=torch.int32, device="cuda")
+            last[:] = [ds, nd]
+            return lib.spartus_capacity_clip_topk(
+                0, delta.data_ptr(), ds.data_ptr(), nd.data_ptr(), b, q,
+                capacity, None, stream)
+
+        def check():
+            ds, nd = last
+            return (torch.equal(ds.view(torch.int32),
+                                want[0].view(torch.int32))
+                    and torch.equal(nd, want[1]))
+        return call, check, lambda: last[0].clone()
+    return setup
+
+
 BENCHES = {
+    "capacity_clip": (capacity_clip_cases, "capacity_clip_topk"),
     "dense_mirror": (dense_mirror_cases, "dense_mirror_kernel"),
     "spmv": (spmv_cases, "stsp_spmv"),
     "delta_encode": (delta_encode_cases, "delta_encode"),
@@ -385,10 +462,10 @@ def main() -> int:
     make_cases, event = BENCHES[args.kernel]
     cases = make_cases(torch)
     runs = list(range(len(libs))) + list(reversed(range(len(libs))))
-    times, firsts = {}, {}
+    times, hosts, firsts = {}, {}, {}
     for i in runs:
         spec, (lib, _) = libs[i]
-        for name, setup in cases:
+        for name, setup, *chain in cases:
             call, check, *result = setup(lib)
             if call() != 0:
                 sys.exit(f"{spec} {name}: launch failed")
@@ -402,11 +479,26 @@ def main() -> int:
                              f"{libs[0][0]} bit for bit")
             times.setdefault((spec, name), []).append(
                 device_ms(torch, call, event))
+            if chain:
+                hosts.setdefault((spec, name), []).append(
+                    host_us(torch, call))
+    # a case's third element, where it has one, is the PyTorch it replaced
+    for name, _, *chain in cases:
+        for fn in chain:
+            for _ in range(2):
+                times.setdefault(("torch chain", name), []).append(
+                    device_ms(torch, fn, ""))
+                hosts.setdefault(("torch chain", name), []).append(
+                    host_us(torch, fn))
     print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
                          text=True).stdout.strip())
+    if hosts:
+        print(f"{'source':40s} {'case':28s} device ms | host us a call")
     for (spec, name), t in times.items():
-        print(f"{spec:40s} {name:28s} " + " ".join(f"{x:.5f}" for x in t))
+        host = hosts.get((spec, name))
+        print(f"{spec:40s} {name:28s} " + " ".join(f"{x:.5f}" for x in t)
+              + (" | " + " ".join(f"{x:.1f}" for x in host) if host else ""))
     if args.ptxas:
         for spec, (_, log) in libs:
             for line in ptxas_lines(log, event):
