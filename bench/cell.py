@@ -10,7 +10,7 @@ from pathlib import Path
 from typing import Dict, Optional
 
 from bench import correctness, counting, drivers, generator, instrument
-from bench import program, weights
+from bench import program
 from bench.manifest import Manifest
 
 FORBIDDEN = ("jax", "jaxlib", "flax", "repro")
@@ -32,20 +32,21 @@ def run(root: Path, workload: str, seed: int, seconds: float, trace: bool,
     cell = man.workload(workload)
     cfg = man.config(cell["config"])
     traffic = man.traffic(cell["traffic"])
+    fam = man.family(cfg["family"])
     program.import_port()
     dev = torch.device(device)
 
     stamps = {"imports": time.perf_counter()}
-    params = weights.make_params(cfg, seed, dev)
+    params = fam.make_params(cfg, seed, dev)
     stamps["weights"] = time.perf_counter()
-    plan = generator.make_plan(traffic, cfg["input_dim"], seed, seconds)
+    plan = generator.make_plan(traffic, fam.input_dim(cfg), seed, seconds)
     stamps["traffic"] = time.perf_counter()
     spans = instrument.SpanRecorder() if trace else None
     counters = chunks = profile = None
     hooks = instrument.NullHooks()
     if trace:
         counters = instrument.Counters(program.ops_module(),
-                                       cfg["input_dim"], dev)
+                                       fam.row_width(cfg), dev)
         counters.install()
         chunks = instrument.ChunkLog(program.pool_engine_class())
         chunks.install()
@@ -56,7 +57,7 @@ def run(root: Path, workload: str, seed: int, seconds: float, trace: bool,
     try:
         paced = traffic["loop"] == "paced"
         engine = (program.batch1_engine if paced
-                  else program.pool_engine)(params, cfg, dev)
+                  else program.pool_engine)(params, cfg, fam, dev)
         stamps["pack"] = time.perf_counter()
         gc.collect()
         gc.freeze()   # set-up's objects stay out of the window's collections
@@ -82,10 +83,12 @@ def run(root: Path, workload: str, seed: int, seconds: float, trace: bool,
     if dev.type == "cuda":
         torch.cuda.synchronize(dev)
         torch.cuda.empty_cache()
-    compared = correctness.check(rec["finished"], plan, params, cfg,
-                                 traffic["sample"], seed, dev)
+    compared = correctness.check(rec["finished"], plan,
+                                 man.reference(cfg["reference"]), params,
+                                 cfg, traffic["sample"], seed, dev)
     rec.update(setup_s=hooks.t0 - t_start, t0=hooks.t0, ta=hooks.ta,
-               tb=hooks.tb, t1=hooks.t1, cfg=cfg, traffic=traffic,
+               tb=hooks.tb, t1=hooks.t1, cfg=cfg, family=fam,
+               traffic=traffic,
                peaks=counting.PEAKS,
                spans=spans.spans if spans is not None else [],
                chunks=chunks.calls if chunks is not None else [],
@@ -109,8 +112,8 @@ def run(root: Path, workload: str, seed: int, seconds: float, trace: bool,
 def notes(rec: Dict) -> Dict:
     """What a reader of the run's log wants beside the result: the
     thirds' rates (how much the counters and the profiler cost), the
-    dispatch's host time a frame step in each third, how late streams
-    opened."""
+    dispatch's host time a frame step in each third, the fired deltas a
+    row by layer input width, how late streams opened."""
     marks = [rec["t0"], rec["ta"], rec["tb"], rec["t1"]]
     thirds = list(zip(marks, marks[1:]))
     if rec["profile"] is not None:     # t1 also waits for the trace's read
@@ -137,6 +140,10 @@ def notes(rec: Dict) -> Dict:
             steps = sum(n for t, n in rec["chunks"] if a <= t < b)
             per.append(1e6 * d / steps if steps else None)
         out["dispatch_us_per_step_by_third"] = per
+    fired = (rec["counts"] or {}).get("fired")
+    if fired and fired["rows"]:     # pre-clip, by the encoder's x width
+        out["fired_per_row_by_width"] = {
+            w: n / fired["rows"] for w, n in fired["by_width"].items()}
     for key in ("open_late_s", "backlog"):
         if key in rec:
             out[key] = rec[key]

@@ -26,12 +26,13 @@ def main(argv=None) -> int:
     sys.path.insert(0, str(ROOT))
     import torch
 
-    from bench import correctness, generator, weights
+    from bench import correctness, generator
     from bench.manifest import Manifest
 
     man = Manifest(ROOT)
     cell = man.workload(args.workload)
     cfg, traffic = man.config(cell["config"]), man.traffic(cell["traffic"])
+    fam, ref = man.family(cfg["family"]), man.reference(cfg["reference"])
     seconds = args.seconds or man.data["run_seconds"]
     if not torch.cuda.is_available():
         print("needs a CUDA device (the cell's own sizes)", file=sys.stderr)
@@ -40,13 +41,14 @@ def main(argv=None) -> int:
     control = CONTROL[cfg["precision"]]
     for seed in args.seeds:
         t = time.perf_counter()
-        params = weights.make_params(cfg, seed, dev)
-        plan = generator.make_plan(traffic, cfg["input_dim"], seed, seconds)
+        params = fam.make_params(cfg, seed, dev)
+        plan = generator.make_plan(traffic, fam.input_dim(cfg), seed, seconds)
         done = [(i, f) for i, f in enumerate(plan.feats)]
         pick = correctness.pick(done, traffic["sample"], seed)
         feats = [plan.feats[done[i][0]] for i in pick]
-        want = correctness.reference_logits(params, cfg, feats, dev)
-        got = correctness.reference_logits(params, cfg, feats, dev, control)
+        want = correctness.reference_logits(ref, params, cfg, feats, dev)
+        got = correctness.reference_logits(ref, params, cfg, feats, dev,
+                                           control)
         print(json.dumps({
             "workload": args.workload, "seed": seed, "control": control,
             "logit_gap": correctness.logit_gap(got, want),

@@ -11,7 +11,6 @@ Two numbers, each with its limit (the configuration file's ``limits``):
 """
 from __future__ import annotations
 
-import importlib
 from typing import Dict, List, Tuple
 
 import numpy as np
@@ -32,13 +31,14 @@ def pick(finished: List[Tuple[int, np.ndarray]], n: int,
     return [longest] + [rest[i] for i in sorted(take)]
 
 
-def reference_logits(params, cfg: dict, feats: List[np.ndarray], device,
-                     precision: str = "fp32", block: int = 32
+def reference_logits(ref, params, cfg: dict, feats: List[np.ndarray],
+                     device, precision: str = "fp32", block: int = 32
                      ) -> List[np.ndarray]:
-    """The reference's logits for each utterance, in blocks of rows."""
+    """The reference's logits for each utterance, in blocks of rows;
+    ``ref`` is the configuration's reference module
+    (``Manifest.reference(cfg["reference"])``)."""
     import torch
 
-    ref = importlib.import_module(f"bench.reference.{cfg['reference']}")
     out = []
     for at in range(0, len(feats), block):
         part = feats[at:at + block]
@@ -59,8 +59,8 @@ def logit_gap(got: List[np.ndarray], want: List[np.ndarray]) -> float:
     return gap / max(scale, 1e-30)
 
 
-def check(finished, plan, params, cfg: dict, n_sample: int, seed: int,
-          device) -> Dict[str, Dict[str, float]]:
+def check(finished, plan, ref, params, cfg: dict, n_sample: int,
+          seed: int, device) -> Dict[str, Dict[str, float]]:
     missing = 0
     for uid, rows in finished:
         missing += abs(plan.feats[uid].shape[0] - rows.shape[0])
@@ -68,7 +68,7 @@ def check(finished, plan, params, cfg: dict, n_sample: int, seed: int,
     chosen = [(uid, rows) for uid, rows in chosen
               if rows.shape[0] == plan.feats[uid].shape[0]]
     if chosen:
-        want = reference_logits(params, cfg,
+        want = reference_logits(ref, params, cfg,
                                 [plan.feats[uid] for uid, _ in chosen],
                                 device)
         gap = logit_gap([rows for _, rows in chosen], want)

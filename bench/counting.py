@@ -44,26 +44,8 @@ def bound_s(n_bytes, ops, peaks=PEAKS):
     return max(t_bytes, t_ops)
 
 
-def kept_per_column(hidden: int, gamma: float, m: int) -> int:
-    """Weights CBTD keeps in one column of a ``[4H, Q]`` stack: M
-    subcolumns of ``S - floor(S gamma)``, ``S = 4H / M``."""
-    s = 4 * hidden // m
+def kept_per_column(rows: int, gamma: float, m: int) -> int:
+    """Weights CBTD keeps in one column of a stack of ``rows`` rows: M
+    subcolumns of ``S - floor(S gamma)``, ``S = rows / M``."""
+    s = rows // m
     return m * (s - int(s * gamma))
-
-
-def lstm_ops_per_fired(hidden: int, gamma: float, m: int) -> int:
-    """A fired delta multiplies its column's kept weights."""
-    return 2 * kept_per_column(hidden, gamma, m)
-
-
-def row_ops(cfg: dict) -> int:
-    """Operations of one frame of one session beyond the gate products,
-    counted from shapes: per layer the delta encoder (subtract, compare
-    on D+H), ``dm += y`` (4H), five nonlinearities, ``c = f c + i g``
-    and ``h = o tanh(c)`` (9H); then the FC layer, ReLU and logits."""
-    d, h, c = cfg["input_dim"], cfg["hidden_dim"], cfg["n_classes"]
-    total = 0
-    for i in range(cfg["n_layers"]):
-        q = (d if i == 0 else h) + h
-        total += 2 * q + 4 * h + 9 * h
-    return total + 2 * h * h + h + 2 * h * c + c

@@ -4,11 +4,12 @@ untraced run pays for.
 The window is cut in thirds.  In the first, ``Counters`` wrap the
 port's ``kernels/ops.py`` entry points and accumulate on the device,
 read once at the end: each dense-mirror and CBCSC SpMV call's bytes,
-operations and least time (``counting.py``), and the fired deltas and
-active rows of every layer-step.  The second runs as an untraced run
-does but for the host spans, which come from the program's tracer
-sites (``SpanRecorder`` is handed to ``PoolObservability``) and from
-the harness's own: host times and rates are read there.  In the last,
+operations and least time (``counting.py``), the fired deltas of every
+layer-step by the width of the encoder call's input, and the active
+rows.  The second runs as an untraced run does but for the host spans,
+which come from the program's tracer sites (``SpanRecorder`` is handed
+to ``PoolObservability``) and from the harness's own: host times and
+rates are read there.  In the last,
 torch.profiler records the device (``DeviceProfile``: kernels, copies,
 their times) and no counter runs, so launches and device times are the
 program's own; its tracing slows the host, so no host time is read
@@ -120,18 +121,23 @@ class TracedHooks(NullHooks):
 
 class Counters:
     """Device accumulators behind wrappers of the port's ops entry
-    points; they count only while ``active``."""
+    points; they count only while ``active``.  An encoder call whose
+    input ``x`` is ``row_width`` wide starts a row (the model family's
+    ``row_width``); fired deltas are kept by the width of ``x``, so a
+    family can weigh each sparse product's at its own cost."""
 
-    def __init__(self, ops, input_dim: int, device):
+    def __init__(self, ops, row_width: int, device):
         import torch
 
         self.torch = torch
         self.ops = ops
-        self.input_dim = input_dim
+        self.row_width = row_width
+        self.device = device
         self.active = False
-        self.acc = {name: torch.zeros(n, dtype=torch.float64, device=device)
-                    for name, n in (("dense_mirror", 4), ("stsp_spmv", 4),
-                                    ("fired", 2))}
+        self.acc = {name: torch.zeros(4, dtype=torch.float64, device=device)
+                    for name in ("dense_mirror", "stsp_spmv")}
+        self.rows = torch.zeros((), dtype=torch.float64, device=device)
+        self.fired: Dict[int, object] = {}
         self._orig = {}
 
     def install(self) -> None:
@@ -175,9 +181,14 @@ class Counters:
             if self.active:
                 act = (torch.ones_like(nnz, dtype=torch.float64)
                        if active is None else active.to(torch.float64))
-                first = float(x.shape[-1] == self.input_dim)
-                self.acc["fired"].add_(torch.stack([
-                    (nnz.to(torch.float64) * act).sum(), act.sum() * first]))
+                width = x.shape[-1]
+                acc = self.fired.get(width)
+                if acc is None:
+                    acc = self.fired[width] = torch.zeros(
+                        (), dtype=torch.float64, device=self.device)
+                acc.add_((nnz.to(torch.float64) * act).sum())
+                if width == self.row_width:
+                    self.rows.add_(act.sum())
             return delta, nnz
 
         ops._mirror_matmul = mirror
@@ -194,15 +205,17 @@ class Counters:
         for name, fn in self._orig.items():
             setattr(self.ops, name, fn)
 
-    def read(self) -> Dict[str, Dict[str, float]]:
+    def read(self) -> Dict[str, Dict]:
+        """Per kernel its bytes, operations, least time and calls; under
+        ``fired`` the active rows and the fired deltas by the width of
+        the encoder call's input (``by_width``)."""
         out = {}
         for name, t in self.acc.items():
             v = [float(x) for x in t.cpu()]
-            if name == "fired":
-                out[name] = {"fired": v[0], "rows": v[1]}
-            else:
-                out[name] = {"bytes": v[0], "ops": v[1], "bound_s": v[2],
-                             "calls": v[3]}
+            out[name] = {"bytes": v[0], "ops": v[1], "bound_s": v[2],
+                         "calls": v[3]}
+        out["fired"] = {"rows": float(self.rows), "by_width": {
+            w: float(t) for w, t in sorted(self.fired.items())}}
         return out
 
 

@@ -3,14 +3,19 @@
 A configuration is the JSON file its entry names; a traffic mix is
 ``bench/traffic/<traffic>.json``; a metric is read by
 ``bench/metrics/<metric>.py``, a module with ``read(rec) -> float | None``.
-A later cell, mix or metric is new files and new entries, never an edit.
+A configuration names its model family, ``bench/families/<family>.py``
+(``bench/families/__init__.py`` says what one provides), and its plain
+reference, ``bench/reference/<reference>.py``.  All are found under the
+root the manifest was read from.  A later cell, mix, metric or family is
+new files and new entries, never an edit.
 """
 from __future__ import annotations
 
 import importlib.util
 import json
 from pathlib import Path
-from typing import Callable, Dict, List, Optional
+from types import ModuleType
+from typing import Callable, Dict, List, Optional, Tuple
 
 BENCH_DIR = "bench"
 
@@ -19,7 +24,7 @@ class Manifest:
     def __init__(self, root: Path):
         self.root = Path(root)
         self.data = json.loads((self.root / "BENCHMARK.json").read_text())
-        self._readers: Dict[str, Callable] = {}
+        self._modules: Dict[Tuple[str, str], ModuleType] = {}
 
     def workload(self, name: str) -> dict:
         for w in self.data["workloads"]:
@@ -51,12 +56,22 @@ class Manifest:
                 and m["moves"] in names]
 
     def reader(self, metric: str) -> Callable[[dict], Optional[float]]:
-        fn = self._readers.get(metric)
-        if fn is None:
-            path = self.root / BENCH_DIR / "metrics" / f"{metric}.py"
+        return self._module("metrics", metric).read
+
+    def family(self, name: str) -> ModuleType:
+        return self._module("families", name)
+
+    def reference(self, name: str) -> ModuleType:
+        return self._module("reference", name)
+
+    def _module(self, kind: str, name: str) -> ModuleType:
+        mod = self._modules.get((kind, name))
+        if mod is None:
+            path = self.root / BENCH_DIR / kind / f"{name}.py"
+            tag = name.replace(".", "_").replace("-", "_")
             spec = importlib.util.spec_from_file_location(
-                f"bench_metric_{metric.replace('.', '_')}", path)
+                f"bench_{kind}_{tag}", path)
             mod = importlib.util.module_from_spec(spec)
             spec.loader.exec_module(mod)
-            fn = self._readers[metric] = mod.read
-        return fn
+            self._modules[(kind, name)] = mod
+        return mod

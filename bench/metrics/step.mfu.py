@@ -1,9 +1,9 @@
 """The whole step's share of the fp32 peak (67 TFLOP/s), in percent:
-the operations the model needs per delivered row (2 x each fired delta
-x its column's kept weights, counted in the window's first third, plus
-the encoder, pointwise and head operations from shapes) times the rows
-the clients held per second in its middle third."""
-from bench import counting
+the operations the model needs per delivered row (each fired delta,
+counted in the window's first third, at what the model family says it
+costs in the sparse product it feeds; plus the rest of the row from
+shapes, the family's ``row_ops``) times the rows the clients held per
+second in its middle third."""
 
 
 def read(rec):
@@ -11,11 +11,10 @@ def read(rec):
     fired = counts.get("fired")
     if not fired or not fired["rows"]:
         return None
-    cfg = rec["cfg"]
-    per_fired = counting.lstm_ops_per_fired(cfg["hidden_dim"],
-                                            cfg["gamma"], cfg["m"])
-    per_row = (per_fired * fired["fired"] / fired["rows"]
-               + counting.row_ops(cfg))
+    cfg, fam = rec["cfg"], rec["family"]
+    per_fired = fam.ops_per_fired(cfg)
+    sparse = sum(per_fired[w] * n for w, n in fired["by_width"].items())
+    per_row = sparse / fired["rows"] + fam.row_ops(cfg)
     ta, tb = rec["ta"], rec["tb"]
     rows = sum(n for t, n in rec.get("deliveries", ()) if ta <= t < tb)
     if not rows:

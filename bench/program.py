@@ -1,8 +1,9 @@
 """The system under test: the port (``src/repro_torch``), built from a
-configuration file and handed the benchmark's weights.  The only module
-of the benchmark that imports the port."""
+configuration file and its model family, and handed the benchmark's
+weights.  The only module of the benchmark that imports the port."""
 from __future__ import annotations
 
+import importlib
 import sys
 from pathlib import Path
 
@@ -26,29 +27,26 @@ def engine_config(cfg: dict):
         quant=QuantConfig() if cfg.get("quant") else None)
 
 
-def model_config(cfg: dict):
-    from repro_torch.models.lstm_am import LSTMAMConfig
-
-    if cfg["fc_dim"] != cfg["hidden_dim"]:
-        raise ValueError("the port's FC layer is as wide as its LSTM")
-    return LSTMAMConfig(input_dim=cfg["input_dim"],
-                        hidden_dim=cfg["hidden_dim"],
-                        n_layers=cfg["n_layers"], n_classes=cfg["n_classes"],
-                        delta=True, theta=cfg["theta"])
+def model_config(cfg: dict, family):
+    """The port's configuration of the model, as ``family`` (the
+    configuration's module under ``bench/families/``) names it."""
+    cls = getattr(importlib.import_module(family.PORT_MODULE),
+                  family.PORT_CONFIG)
+    return cls(**family.model_kwargs(cfg))
 
 
-def pool_engine(params, cfg: dict, device):
+def pool_engine(params, cfg: dict, family, device):
     from repro_torch.serving import BatchedSpartusEngine
 
-    return BatchedSpartusEngine(params, model_config(cfg),
+    return BatchedSpartusEngine(params, model_config(cfg, family),
                                 engine_config(cfg), device=device)
 
 
-def batch1_engine(params, cfg: dict, device):
+def batch1_engine(params, cfg: dict, family, device):
     from repro_torch.serving import SpartusEngine
 
-    return SpartusEngine(params, model_config(cfg), engine_config(cfg),
-                         device=device)
+    return SpartusEngine(params, model_config(cfg, family),
+                         engine_config(cfg), device=device)
 
 
 def server(engine, spec: dict, tracer=None):

@@ -1,9 +1,9 @@
 """Plain DeltaLSTM acoustic model (Spartus, arXiv:2108.02297, eqs. 3-8):
 the reference that decides a cell's ``correct``.
 
-It is handed the benchmark's weights (``bench/weights.py``) and frames
-and derives the served model from them itself, as the paper's
-accelerator stores it:
+It is handed the benchmark's weights (``bench/families/delta_lstm.py``)
+and frames and derives the served model from them itself, as the
+paper's accelerator stores it:
 
 * each layer's stacked ``[4H, D+H]`` matrix on the int8 grid of a
   per-matrix power-of-two scale, ``2^ceil(log2(max|W| / 127))`` (Spartus

@@ -31,7 +31,7 @@ def main(argv=None) -> int:
     sys.path.insert(0, str(ROOT))
     import torch
 
-    from bench import drivers, generator, instrument, program, weights
+    from bench import drivers, generator, instrument, program
     from bench.manifest import Manifest
 
     program.import_port()
@@ -40,12 +40,13 @@ def main(argv=None) -> int:
     man.data["workloads"] += parked["workloads"]
     cell = man.workload(args.workload)
     cfg, base = man.config(cell["config"]), man.traffic(cell["traffic"])
+    fam = man.family(cfg["family"])
     dev = torch.device("cuda")
-    params = weights.make_params(cfg, args.seed, dev)
-    engine = program.pool_engine(params, cfg, dev)
+    params = fam.make_params(cfg, args.seed, dev)
+    engine = program.pool_engine(params, cfg, fam, dev)
     for rate in args.rates:
         traffic = dict(base, rate_per_s=rate)
-        plan = generator.make_plan(traffic, cfg["input_dim"], args.seed,
+        plan = generator.make_plan(traffic, fam.input_dim(cfg), args.seed,
                                    args.seconds)
         srv = program.server(engine, traffic["server"])
         rec = asyncio.run(drivers.open_loop(srv, plan, traffic,

@@ -2,9 +2,9 @@
 ``python -m pytest -q bench/tests``; ``-m gpu`` on a card).
 
 ``tiny_root`` is a data root beside the real one: ``BENCHMARK.json``
-with the parked cells (``bench/parked.json``) added, and the
-configuration, traffic and metric files, cut to sizes a CPU runs in
-seconds, with the real cells' names."""
+with the parked cells (``bench/parked.json``) added, the configuration
+and traffic files cut to sizes a CPU runs in seconds, with the real
+cells' names, and the metric readers, model families and references."""
 import json
 import shutil
 import sys
@@ -36,7 +36,9 @@ def tiny_config(name: str, **kw) -> dict:
 
 def make_tiny_root(path: Path) -> Path:
     bench = path / "bench"
-    shutil.copytree(ROOT / "bench" / "metrics", bench / "metrics")
+    for kind in ("metrics", "families", "reference"):
+        shutil.copytree(ROOT / "bench" / kind, bench / kind,
+                        ignore=shutil.ignore_patterns("__pycache__"))
     (bench / "configs").mkdir(parents=True)
     (bench / "traffic").mkdir()
     configs = {"tiny": tiny_config("tiny"),
@@ -45,11 +47,12 @@ def make_tiny_root(path: Path) -> Path:
                                     precision="int8")}
     for name, cfg in configs.items():
         (bench / "configs" / f"{name}.json").write_text(json.dumps(cfg))
-    for name in ("bulk", "stream", "batch1"):
+    for name in ("bulk", "noise-bulk", "stream", "batch1"):
         t = json.loads((ROOT / f"bench/traffic/{name}.json").read_text())
-        t["features"]["n_static"] = 5
+        if t["features"]["kind"] == "speech":
+            t["features"]["n_static"] = 5
         t["lengths"] = {"median": 40, "sigma": 0.4, "min": 12, "max": 100}
-        if name == "bulk":
+        if name.endswith("bulk"):
             t.update(clients=8, utterances=32, warmup_s=0.3)
             t["server"].update(capacity=4, max_frames=128)
         if name == "stream":

@@ -36,27 +36,9 @@ def test_bound_is_the_slower_of_bytes_and_operations():
     assert float(t) == pytest.approx(3.0)
 
 
-def test_kept_weights_per_column():
-    # 4H = 4096 rows in M = 64 subcolumns of S = 64: CBTD drops
-    # floor(64 * 0.9375) = 60 of each, keeps 4 -> 256 = 4H (1 - gamma)
-    assert counting.kept_per_column(1024, 0.9375, 64) == 256
-    assert counting.kept_per_column(512, 0.9375, 64) == 128
-    assert counting.lstm_ops_per_fired(1024, 0.9375, 64) == 512
-    # S = 4H/M = 6, floor(6 * 0.75) = 4 dropped, 2 kept a subcolumn
-    assert counting.kept_per_column(6, 0.75, 4) == 8
-
-
-def test_row_ops_from_shapes():
-    cfg = {"input_dim": 3, "hidden_dim": 2, "n_classes": 5, "n_layers": 2}
-    layer1 = 2 * (3 + 2) + 4 * 2 + 9 * 2
-    layer2 = 2 * (2 + 2) + 4 * 2 + 9 * 2
-    head = 2 * 2 * 2 + 2 + 2 * 2 * 5 + 5
-    assert counting.row_ops(cfg) == layer1 + layer2 + head
-
-
 def test_counters_at_the_ops_boundary():
     ops = ops_module()
-    c = instrument.Counters(ops, input_dim=5, device=torch.device("cpu"))
+    c = instrument.Counters(ops, row_width=5, device=torch.device("cpu"))
     c.install()
     try:
         ds = torch.zeros(3, 5)
@@ -76,6 +58,9 @@ def test_counters_at_the_ops_boundary():
         x = torch.randn(3, 5)
         ops.delta_encode_step(x, torch.zeros(3, 2), torch.zeros(3, 7), 0.3,
                               active=active)
+        # a layer past the first: x as wide as h, fired kept apart, no row
+        x2 = torch.randn(3, 2)
+        ops.delta_encode_step(x2, torch.zeros(3, 2), torch.zeros(3, 4), 0.3)
         out = c.read()
     finally:
         c.uninstall()
@@ -89,7 +74,9 @@ def test_counters_at_the_ops_boundary():
     assert spmv["bytes"] == 2 * 4 * 2 * 2 + 2 * 3 * 8 + 2 * 16 * 4
     assert spmv["ops"] == 2 * 3 * 4 * 2
     fired = (x.abs() > 0.3).sum(1)
-    assert out["fired"]["fired"] == float(fired[0] + fired[2])
+    fired2 = int((x2.abs() > 0.3).sum())
+    assert out["fired"]["by_width"] == {2: float(fired2),
+                                        5: float(fired[0] + fired[2])}
     assert out["fired"]["rows"] == 2.0
 
 

@@ -16,7 +16,8 @@ from bench.tests.conftest import ROOT, tiny_config
 import_port()
 
 CELLS = ["dlstm-2l1024h.bulk", "dlstm-3l512h-int8.bulk",
-         "dlstm-2l1024h.stream", "dlstm-2l1024h.batch1"]
+         "dlstm-2l1024h.noise-bulk", "dlstm-2l1024h.stream",
+         "dlstm-2l1024h.batch1"]
 SEED = 2 ** 31 + 12345
 
 
@@ -77,10 +78,16 @@ def test_a_new_config_mix_and_metric_are_found_by_name(tiny_root):
 
 @pytest.mark.parametrize("name", ["jax", "repro"])
 def test_a_forbidden_module_loaded_by_a_reader_refuses_the_run(
-        tiny_root, capsys, name):
+        tiny_root, capsys, monkeypatch, name):
     """A metric's reader runs after the window and after the comparison;
-    a JAX-side module it loads still keeps the result from printing."""
+    a JAX-side module it loads still keeps the result from printing.
+    What other tests in this process loaded of JAX or the JAX package is
+    out of ``sys.modules`` for the test's length (monkeypatch puts it
+    back), so the run sees only what the reader loads."""
     from bench import run as bench_run
+
+    for loaded in cell.loaded_forbidden(list(sys.modules)):
+        monkeypatch.delitem(sys.modules, loaded, raising=False)
 
     (tiny_root / "bench" / "metrics" / "planted.py").write_text(
         "import sys, types\n"

@@ -8,6 +8,8 @@ import pytest
 import torch
 
 from bench import correctness, generator, weights
+from bench.families import delta_lstm as family
+from bench.reference import delta_lstm as ref
 from bench.program import import_port
 from bench.tests.conftest import ROOT
 
@@ -22,8 +24,11 @@ def config(hidden, layers, route, quant, m=64):
     return cfg
 
 
-def feats_for(seed, n=6):
-    t = json.loads((ROOT / "bench/traffic/bulk.json").read_text())
+MIXES = ["bulk", "noise-bulk"]
+
+
+def feats_for(seed, n=6, mix="bulk"):
+    t = json.loads((ROOT / f"bench/traffic/{mix}.json").read_text())
     t["lengths"] = {"median": 40, "sigma": 0.4, "min": 20, "max": 70}
     return generator.make_plan(dict(t, utterances=n), 123, seed, 1.0).feats
 
@@ -33,7 +38,7 @@ def port_logits(params, cfg, feats, device="cpu"):
 
     from bench import program
 
-    engine = program.pool_engine(params, cfg, torch.device(device))
+    engine = program.pool_engine(params, cfg, family, torch.device(device))
     reqs = [rt.StreamRequest(i, 0, f) for i, f in enumerate(feats)]
     results, _ = rt.serve_requests(engine, reqs, 4, chunk_frames=8)
     return [r.logits for r in results]
@@ -60,30 +65,32 @@ def gap_over(got, want, frames):
     return correctness.logit_gap(got, want)
 
 
+@pytest.mark.parametrize("mix", MIXES)
 @pytest.mark.parametrize("hidden,layers,route,quant,m,frames", CASES)
 def test_reference_matches_the_port(hidden, layers, route, quant, m,
-                                    frames):
+                                    frames, mix):
     cfg = config(hidden, layers, route, quant, m)
-    params = weights.make_params(cfg, 7, torch.device("cpu"))
-    feats = feats_for(7)
+    params = family.make_params(cfg, 7, torch.device("cpu"))
+    feats = feats_for(7, mix=mix)
     got = port_logits(params, cfg, feats)
-    want = correctness.reference_logits(params, cfg, feats, "cpu")
+    want = correctness.reference_logits(ref, params, cfg, feats, "cpu")
     assert max(float(np.abs(w).std()) for w in want) > 1e-3   # not silent
     assert gap_over(got, want, frames) <= 1e-6
 
 
+@pytest.mark.parametrize("mix", MIXES)
 @pytest.mark.parametrize("hidden,layers,route,quant,m,frames", CASES)
-def test_controls_fail(hidden, layers, route, quant, m, frames):
+def test_controls_fail(hidden, layers, route, quant, m, frames, mix):
     """The control, the reference in the program's place a precision
     step below the configuration's (TF32 for fp32, int4 for int8),
     reads far above the limit."""
     cfg = config(hidden, layers, route, quant, m)
     control = "int4" if quant else "tf32"
     for seed in (1, 2, 3):
-        params = weights.make_params(cfg, seed, torch.device("cpu"))
-        feats = feats_for(seed)
-        want = correctness.reference_logits(params, cfg, feats, "cpu")
-        got = correctness.reference_logits(params, cfg, feats, "cpu",
+        params = family.make_params(cfg, seed, torch.device("cpu"))
+        feats = feats_for(seed, mix=mix)
+        want = correctness.reference_logits(ref, params, cfg, feats, "cpu")
+        got = correctness.reference_logits(ref, params, cfg, feats, "cpu",
                                            control)
         assert correctness.logit_gap(got, want) > 10 * cfg["limits"][
             "logit_gap"]
@@ -91,7 +98,7 @@ def test_controls_fail(hidden, layers, route, quant, m, frames):
 
 def test_cbtd_keeps_a_balanced_count():
     cfg = config(64, 2, "auto", False)
-    params = weights.make_params(cfg, 3, torch.device("cpu"))
+    params = family.make_params(cfg, 3, torch.device("cpu"))
     for lp in params["lstm"]:
         w = torch.cat([lp["w_x"], lp["w_h"]], dim=1)
         s = w.shape[0] // cfg["m"]
@@ -127,9 +134,9 @@ def test_tf32_rounding():
 def test_reference_matches_the_port_on_the_card(cuda, hidden, layers, route,
                                                 quant, m, frames):
     cfg = config(hidden, layers, route, quant, m)
-    params = weights.make_params(cfg, 11, cuda)
+    params = family.make_params(cfg, 11, cuda)
     feats = feats_for(11)
     got = port_logits(params, cfg, feats, "cuda")
-    want = correctness.reference_logits(params, cfg, feats, cuda)
+    want = correctness.reference_logits(ref, params, cfg, feats, cuda)
     # the head's cuBLAS GEMMs round in another order than the host's
     assert gap_over(got, want, frames) <= 1e-5

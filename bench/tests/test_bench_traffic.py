@@ -37,7 +37,8 @@ def test_length_law():
     assert sorted(lens) == sorted(other) and list(lens) != list(other)
 
 
-@pytest.mark.parametrize("name", ["bulk", "stream", "batch1"])
+@pytest.mark.parametrize("name",
+                         ["bulk", "noise-bulk", "stream", "batch1"])
 def test_plan_is_a_function_of_the_seed(name):
     seed = 2 ** 33 + 17
     a = generator.make_plan(mix(name), 123, seed, 2.0)
@@ -72,7 +73,7 @@ def test_speech_deltas_are_sparse_and_noise_is_not():
     plan = generator.make_plan(dict(t, utterances=16), 123, 5, 1.0)
     share = np.mean([fire_share(f, 0.3) for f in plan.feats])
     assert 0.05 < share < 0.25, share
-    noise = dict(t, utterances=4, features={"kind": "noise", "scale": 1.0})
+    noise = dict(mix("noise-bulk"), utterances=4)
     plan = generator.make_plan(noise, 123, 5, 1.0)
     assert np.mean([fire_share(f, 0.3) for f in plan.feats]) > 0.6
 
